@@ -1,0 +1,106 @@
+"""Build and load the port's CUDA kernels (nvcc -> shared library -> ctypes).
+
+The sources in `multigrid_dolfinx_tpu_torch/csrc/*.cu` expose plain C
+entry points, so they compile in seconds without PyTorch's headers.  The
+build runs at the first CUDA call, never at import, and is keyed on a hash
+of the sources and flags: `build/torch_kernels/libmg_torch_<hash>.so`
+under the checkout.  `--fmad=false` keeps the kernels' rounding equal to
+their plain PyTorch versions (no multiply-add contraction).
+"""
+from __future__ import annotations
+
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Optional
+
+PACKAGE_DIR = Path(__file__).resolve().parents[2]
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
+SOURCES = ("stencil3d.cu", "stencil3d_norm.cu")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+
+# entry point -> argument kinds: p pointer (device pointer or stream),
+# i int, f float, d double.  Every entry point returns a cudaError_t as int.
+SIGNATURES = {
+    "mg_rb_sweep_f32": "pppiffp",
+    "mg_rb_sweep_f64": "pppiddp",
+    "mg_restrict_residual_pt_f32": "pppiiffp",
+    "mg_restrict_residual_pt_f64": "pppiiddp",
+    "mg_prolong_linear_f32": "pppiip",
+    "mg_prolong_linear_f64": "pppiip",
+    "mg_tet_quad_partials": "i",
+    "mg_residual_tet_quad_f32": "ppppiffidp",
+    "mg_residual_tet_quad_f64": "ppppiddidp",
+}
+
+_LIB = None
+#: nvcc's output of the last build in this process (ptxas register and
+#: spill report); None if the library was already built.
+build_log: Optional[str] = None
+
+
+def _find_nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc is None:
+        home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+        cand = Path(home) / "bin" / "nvcc"
+        if cand.exists():
+            nvcc = str(cand)
+    if nvcc is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return nvcc
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update((CSRC_DIR / name).read_bytes())
+    return BUILD_DIR / f"libmg_torch_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the library unless the hashed file already exists."""
+    global build_log
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(CSRC_DIR / s) for s in SOURCES]]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+    os.replace(tmp, out)
+    return out
+
+
+def library():
+    """The loaded kernel library (a ctypes.CDLL), built on first use."""
+    global _LIB
+    if _LIB is None:
+        import ctypes
+
+        kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int,
+                 "f": ctypes.c_float, "d": ctypes.c_double}
+        lib = ctypes.CDLL(str(build()))
+        for name, sig in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = [kinds[k] for k in sig]
+            fn.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")

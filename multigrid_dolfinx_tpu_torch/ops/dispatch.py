@@ -1,0 +1,63 @@
+"""Dispatch between the CUDA kernels and their plain versions.
+
+The rule is the device of the tensor, and nothing else: a CUDA tensor
+goes to the hand-written kernel (which raises if it cannot run), a CPU
+tensor to the kernel's plain PyTorch version.  There is no fallback from
+a failed build or launch and no switch that sends a CUDA tensor to the
+plain version.
+"""
+from __future__ import annotations
+
+import torch
+
+from .cuda import stencil3d, stencil3d_norm
+from .operators import StencilOperator
+
+POISSON7_3D_OFFSETS = (
+    (-1, 0, 0), (0, -1, 0), (0, 0, -1), (0, 0, 0),
+    (0, 0, 1), (0, 1, 0), (1, 0, 0),
+)
+
+
+def const7_weights(A: StencilOperator):
+    """(wc, woff) of an isotropic const-7-point operator, or None."""
+    if A.offsets != POISSON7_3D_OFFSETS or A.const_weights is None:
+        return None
+    w = A.const_weights
+    center = A.center_index()
+    offs = [w[k] for k in range(7) if k != center]
+    if not all(abs(o - offs[0]) < 1e-12 * abs(w[center]) for o in offs):
+        return None
+    return float(w[center]), float(offs[0])
+
+
+def _on_cuda(t: torch.Tensor) -> bool:
+    if t.is_cuda:
+        return True
+    if t.device.type != "cpu":
+        raise ValueError(f"unsupported device {t.device}")
+    return False
+
+
+def rb_sweep(v, f, lm, wc, woff):
+    if _on_cuda(v):
+        return stencil3d.rb_sweep(v, f, lm, wc, woff)
+    return stencil3d.rb_sweep_ref(v, f, lm, wc, woff)
+
+
+def restrict_residual_pt(v, f, lmf, lmc, wc, woff):
+    if _on_cuda(v):
+        return stencil3d.restrict_residual_pt(v, f, lmf, lmc, wc, woff)
+    return stencil3d.restrict_residual_pt_ref(v, f, lmf, lmc, wc, woff)
+
+
+def prolong_linear(c, lmf, v=None):
+    if _on_cuda(c):
+        return stencil3d.prolong_linear(c, lmf, v)
+    return stencil3d.prolong_linear_ref(c, lmf, v)
+
+
+def residual_tet_quad(v, f, lm, wc, woff, diagonal):
+    if _on_cuda(v):
+        return stencil3d_norm.residual_tet_quad(v, f, lm, wc, woff, diagonal)
+    return stencil3d_norm.residual_tet_quad_ref(v, f, lm, wc, woff, diagonal)
