@@ -1,12 +1,18 @@
 """multigrid_dolfinx_tpu_torch — the PyTorch / CUDA port of
 multigrid_dolfinx_tpu.
 
-Its first slice is the main path: 3D Poisson with P1 elements on Kuhn
-tetrahedra (the constant 7-point stencil), the lean hierarchy built on the
-device, an FMG start and V(ν1, ν2) cycles with red-black Gauss-Seidel,
-variational P^T restriction and trilinear prolongation, a dense coarsest
-solve factorised once, and a fused FEM-L2 residual check after each
-cycle.  On a CUDA device the hot ops run as hand-written Hopper kernels
+Its slices so far:
+  * the main path: 3D Poisson with P1 elements on Kuhn tetrahedra (the
+    constant 7-point stencil), the lean hierarchy built on the device, an
+    FMG start and V(ν1, ν2) cycles with red-black Gauss-Seidel,
+    variational P^T restriction and trilinear prolongation, a dense
+    coarsest solve factorised once, and a fused FEM-L2 residual check
+    after each cycle;
+  * 2D P1 Poisson (the constant 5-point stencil): the reference's exact
+    run (models.poisson2d() through the assembled build_hierarchy: FMG +
+    V(50,50) weighted Jacobi with injection, 63 cycles to 1e-11) and the
+    lean V(2,2) red-black / P^T solve at full width.
+On a CUDA device the hot ops run as hand-written Hopper kernels
 (ops/cuda, sources in csrc/); on the CPU they run as the kernels' plain
 PyTorch versions.  This package never imports JAX.
 
@@ -25,7 +31,8 @@ Quick start::
 
 from .config import CycleSpec, HierarchySpec, ProblemSpec, SolverConfig
 from .mesh import GridLevel, build_grid_hierarchy
-from .solver.hierarchy import Hierarchy, Level, build_lean_hierarchy
+from .solver.hierarchy import (Hierarchy, Level, build_hierarchy,
+                               build_lean_hierarchy)
 from .solver.fmg import (SolveResult, error_norm, fmg_solve, residual_norm,
                          resume_solve, solve)
 from .solver.vcycle import vcycle
@@ -43,6 +50,7 @@ __all__ = [
     "build_grid_hierarchy",
     "Hierarchy",
     "Level",
+    "build_hierarchy",
     "build_lean_hierarchy",
     "SolveResult",
     "fmg_solve",

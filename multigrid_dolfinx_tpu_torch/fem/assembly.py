@@ -1,12 +1,14 @@
 """Ahead-of-time P1 assembly on the Kuhn-tetrahedra grid -> stencil planes
 (numpy, setup path only).
 
-The P1 numpy path of `multigrid_dolfinx_tpu.fem.assembly`: the operator at
-node p is (A u)[p] = sum_k planes[k][p] * u[p + offsets[k]], with
-dolfinx's Dirichlet semantics (symmetric elimination, lifting, set_bc).
-The port assembles only the tiny prototype and coarsest grids with it;
-the fine levels are built on the device (fem.fast_const).  The native C++
-assembler of the JAX package (`csrc/`) is not used here.
+The P1 numpy path of `multigrid_dolfinx_tpu.fem.assembly`, triangles in
+2D and Kuhn tetrahedra in 3D: the operator at node p is
+(A u)[p] = sum_k planes[k][p] * u[p + offsets[k]], with dolfinx's
+Dirichlet semantics (symmetric elimination, lifting, set_bc).  Lean
+hierarchies assemble only the tiny prototype and coarsest grids with it
+(the fine levels are built on the device, fem.fast_const); the assembled
+`build_hierarchy` assembles every level.  The native C++ assembler of the
+JAX package (`csrc/`) is not used here.
 """
 from __future__ import annotations
 
@@ -25,7 +27,9 @@ Offset = Tuple[int, ...]
 
 def simplex_vertex_offsets(ndim: int, diagonal: str = "right") -> List[List[Offset]]:
     """Vertex offsets (integer corner coordinates of the unit cell) of each
-    simplex of one cell.  3D: the Kuhn/Freudenthal split into 6 tetrahedra
+    simplex of one cell.  2D: two triangles split along the (0,0)-(1,1)
+    diagonal ('right') or (1,0)-(0,1) ('left').  3D: the Kuhn/Freudenthal
+    split into 6 tetrahedra
     sharing the (0,0,0)-(1,1,1) diagonal ('right') or its mirror in the
     first axis, (1,0,0)-(0,1,1) ('left')."""
     if ndim == 2:
@@ -131,36 +135,37 @@ class AssembledLevel:
 
 
 def assemble_level(grid: GridLevel, problem: ProblemSpec) -> AssembledLevel:
-    """Assemble P1 stiffness, mass and load for one 3D level with dolfinx's
-    Dirichlet semantics: symmetric elimination with unit diagonal,
-    b <- b - A_raw g (apply_lifting), b <- uD on the boundary (set_bc)."""
-    if grid.ndim != 3 or problem.degree != 1 or problem.kappa is not None:
+    """Assemble P1 stiffness, mass and load for one 2D or 3D level with
+    dolfinx's Dirichlet semantics: symmetric elimination with unit
+    diagonal, b <- b - A_raw g (apply_lifting), b <- uD on the boundary
+    (set_bc)."""
+    if problem.degree != 1 or problem.kappa is not None:
         raise NotImplementedError(
-            "the port assembles constant-coefficient 3D P1 only; 2D, P2 and "
-            "variable kappa are ROADMAP.md queue 1, items 11, 16 and 14")
-    n, h = grid.n, grid.h
+            "the port assembles constant-coefficient P1 only; P2 and "
+            "variable kappa are ROADMAP.md queue 1, items 16 and 14")
+    ndim, n, h = grid.ndim, grid.n, grid.h
     shape = grid.shape
     acc_a = PlaneAccumulator(shape)
     acc_m = PlaneAccumulator(shape)
     b = np.zeros(shape, dtype=np.float64)
     rhs_fn = problem.resolved_rhs()
-    qbary, qw = elements.tet_quadrature()
-    cell_axes = [np.arange(n, dtype=np.float64) * h for _ in range(3)]
+    stiffness, mass, measure, (qbary, qw) = elements.simplex_p1(ndim)
+    cell_axes = [np.arange(n, dtype=np.float64) * h for _ in range(ndim)]
     cell_origin = np.meshgrid(*cell_axes, indexing="ij")
 
-    for voffs in simplex_vertex_offsets(3, problem.diagonal):
+    for voffs in simplex_vertex_offsets(ndim, problem.diagonal):
         verts = np.asarray([[c * h for c in v] for v in voffs])
-        K = elements.p1_tet_stiffness(*verts)
-        M = elements.p1_tet_mass(*verts)
-        vol = elements.tet_volume(*verts)
-        for a in range(4):
-            for bb in range(4):
+        K = stiffness(*verts)
+        M = mass(*verts)
+        vol = measure(*verts)
+        for a in range(ndim + 1):
+            for bb in range(ndim + 1):
                 acc_a.add(voffs[a], voffs[bb], K[a, bb], n)
                 acc_m.add(voffs[a], voffs[bb], M[a, bb], n)
         for q in range(len(qw)):
             xq_local = qbary[q] @ verts
             fq = rhs_fn(*[co + xo for co, xo in zip(cell_origin, xq_local)])
-            for a in range(4):
+            for a in range(ndim + 1):
                 slab = tuple(slice(r, r + n) for r in voffs[a])
                 b[slab] += vol * qw[q] * qbary[q, a] * fq
 
@@ -177,6 +182,12 @@ def assemble_level(grid: GridLevel, problem: ProblemSpec) -> AssembledLevel:
         A_raw_planes=a_raw, M_offsets=m_offsets, M_planes=m_planes,
         b=b, g=g, interior=interior,
     )
+
+
+def assemble_hierarchy(grids: Sequence[GridLevel],
+                       problem: ProblemSpec) -> List[AssembledLevel]:
+    """Assemble every level (rediscretisation, as the reference does)."""
+    return [assemble_level(g, problem) for g in grids]
 
 
 def eliminate_dirichlet_np(offsets, raw_planes: np.ndarray,

@@ -1,8 +1,9 @@
-"""P1 tetrahedron element matrices and quadrature (numpy, setup path only).
+"""P1 triangle and tetrahedron element matrices and quadrature (numpy,
+setup path only).
 
-The P1 subset of `multigrid_dolfinx_tpu.fem.elements` that the 3D
-assembly and norms use; the triangle and P2 pieces come with the 2D and
-P2 slices (ROADMAP.md queue 1, items 11 and 16).
+The P1 subset of `multigrid_dolfinx_tpu.fem.elements` that the 2D and 3D
+assembly and norms use; the P2 pieces come with the P2 slice (ROADMAP.md
+queue 1, item 16).
 """
 from __future__ import annotations
 
@@ -10,6 +11,48 @@ import itertools
 from typing import Tuple
 
 import numpy as np
+
+
+def triangle_area(p0, p1, p2) -> float:
+    return 0.5 * abs(
+        (p1[0] - p0[0]) * (p2[1] - p0[1]) - (p2[0] - p0[0]) * (p1[1] - p0[1])
+    )
+
+
+def p1_triangle_stiffness(p0, p1, p2) -> np.ndarray:
+    """3x3 P1 stiffness on a triangle: (e_a . e_b) / (4 area), e_a the edge
+    opposite vertex a."""
+    p = np.asarray([p0, p1, p2], dtype=np.float64)
+    e = np.asarray([p[(a + 2) % 3] - p[(a + 1) % 3] for a in range(3)])
+    area = triangle_area(p0, p1, p2)
+    grads = np.stack([-e[:, 1], e[:, 0]], axis=1) / (2.0 * area)
+    return area * (grads @ grads.T)
+
+
+def p1_triangle_mass(p0, p1, p2) -> np.ndarray:
+    """3x3 consistent P1 mass matrix = area/12 * (1 + delta_ab)."""
+    area = triangle_area(p0, p1, p2)
+    return (area / 12.0) * (np.ones((3, 3)) + np.eye(3))
+
+
+# Dunavant 7-point rule, exact through degree 5 on the triangle
+# (barycentric points, weights summing to 1).
+_DUNAVANT7_BARY = np.array([
+    [1.0 / 3.0, 1.0 / 3.0, 1.0 / 3.0],
+    [0.797426985353087, 0.101286507323456, 0.101286507323456],
+    [0.101286507323456, 0.797426985353087, 0.101286507323456],
+    [0.101286507323456, 0.101286507323456, 0.797426985353087],
+    [0.059715871789770, 0.470142064105115, 0.470142064105115],
+    [0.470142064105115, 0.059715871789770, 0.470142064105115],
+    [0.470142064105115, 0.470142064105115, 0.059715871789770],
+])
+_DUNAVANT7_W = np.array([0.225] + [0.125939180544827] * 3
+                        + [0.132394152788506] * 3)
+
+
+def triangle_quadrature() -> Tuple[np.ndarray, np.ndarray]:
+    """(barycentric points (Q,3), weights (Q,) summing to 1)."""
+    return _DUNAVANT7_BARY, _DUNAVANT7_W
 
 
 def tet_volume(p0, p1, p2, p3) -> float:
@@ -61,3 +104,14 @@ _KEAST11_BARY, _KEAST11_W = _keast11()
 def tet_quadrature() -> Tuple[np.ndarray, np.ndarray]:
     """(barycentric points (Q,4), weights (Q,) summing to 1)."""
     return _KEAST11_BARY, _KEAST11_W
+
+
+def simplex_p1(ndim: int):
+    """(stiffness fn, mass fn, measure fn, (barycentric points, weights))
+    of the P1 simplex of dimension ndim."""
+    if ndim == 2:
+        return (p1_triangle_stiffness, p1_triangle_mass, triangle_area,
+                triangle_quadrature())
+    if ndim == 3:
+        return p1_tet_stiffness, p1_tet_mass, tet_volume, tet_quadrature()
+    raise ValueError(f"ndim must be 2 or 3, got {ndim}")

@@ -12,7 +12,7 @@ The fine arrays are then built on the target device with torch ops:
 so a 512^3 level needs no host-side O(N) array.  Mirrors
 `multigrid_dolfinx_tpu.fem.fast_const`, with `device_level_arrays`
 rewritten as torch ops on an explicit device and without the TPU tile
-padding (storage is the logical (n+1)^3 box).
+padding (storage is the logical (n+1)^d box).
 """
 from __future__ import annotations
 
@@ -73,13 +73,13 @@ def build_const_template(problem: ProblemSpec) -> ConstTemplate:
 def _raw_load(grid: GridLevel, problem: ProblemSpec) -> np.ndarray:
     """Raw (no-BC) load vector of the prototype grid."""
     n, h = grid.n, grid.h
-    qbary, qw = elements.tet_quadrature()
+    _, _, measure, (qbary, qw) = elements.simplex_p1(grid.ndim)
     b = np.zeros(grid.shape)
     f = problem.rhs_const
-    for voffs in fa.simplex_vertex_offsets(3, problem.diagonal):
-        vol = elements.tet_volume(*[[c * h for c in v] for v in voffs])
+    for voffs in fa.simplex_vertex_offsets(grid.ndim, problem.diagonal):
+        vol = measure(*[[c * h for c in v] for v in voffs])
         for q in range(len(qw)):
-            for a in range(4):
+            for a in range(grid.ndim + 1):
                 slab = tuple(slice(r, r + n) for r in voffs[a])
                 b[slab] += vol * qw[q] * qbary[q, a] * f
     return b

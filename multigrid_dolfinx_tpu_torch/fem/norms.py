@@ -3,7 +3,7 @@
 ||u_h - u*||^2 = sum_simplices vol sum_q w_q (u_h(x_q) - u*(x_q))^2, with
 u*(x_q) evaluated on the fly at norm time (solver.fmg.error_norm): the
 data here is O(1) tuples, no grid-sized buffer.  Mirrors
-`multigrid_dolfinx_tpu.fem.norms.error_quadrature` for P1.
+`multigrid_dolfinx_tpu.fem.norms.error_quadrature` for P1 in 2D and 3D.
 """
 from __future__ import annotations
 
@@ -34,20 +34,21 @@ class ErrorQuad:
 
 
 def error_quadrature(grid: GridLevel, problem: ProblemSpec) -> ErrorQuad:
-    """Per-quadrature-point error-norm data of a 3D P1 level."""
-    if grid.ndim != 3 or problem.degree != 1:
+    """Per-quadrature-point error-norm data of a 2D or 3D P1 level."""
+    if problem.degree != 1:
         raise NotImplementedError(
-            "the port's error quadrature is 3D P1 only (ROADMAP.md queue 1, "
-            "items 11 and 16)")
+            "the port's error quadrature is P1 only (ROADMAP.md queue 1, "
+            "item 16)")
     h = grid.h
-    qbary, qw = elements.tet_quadrature()
+    _, _, measure, (qbary, qw) = elements.simplex_p1(grid.ndim)
     voffs_all, lambdas, vws, xq_locals = [], [], [], []
-    for voffs in simplex_vertex_offsets(3, problem.diagonal):
+    for voffs in simplex_vertex_offsets(grid.ndim, problem.diagonal):
         verts = np.asarray([[c * h for c in v] for v in voffs])
-        vol = elements.tet_volume(*verts)
+        vol = measure(*verts)
         voffs_all.append(tuple(tuple(v) for v in voffs))
         vws.append(tuple(float(vol * qw[q]) for q in range(len(qw))))
-        lambdas.append(tuple(tuple(float(qbary[q, a]) for a in range(4))
+        lambdas.append(tuple(tuple(float(qbary[q, a])
+                                   for a in range(grid.ndim + 1))
                              for q in range(len(qw))))
         xq_locals.append(tuple(tuple(float(x) for x in (qbary[q] @ verts))
                                for q in range(len(qw))))

@@ -1,4 +1,4 @@
 """Ready-made problem configurations."""
-from .poisson import poisson3d
+from .poisson import poisson2d, poisson3d
 
-__all__ = ["poisson3d"]
+__all__ = ["poisson2d", "poisson3d"]

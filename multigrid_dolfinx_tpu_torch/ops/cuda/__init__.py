@@ -3,15 +3,20 @@
 Importing this package never touches nvcc or ctypes: the library is
 built and loaded at the first CUDA launch (ops.cuda.build).
 """
-from . import stencil3d, stencil3d_norm
+from . import stencil2d, stencil3d, stencil3d_norm
+
+_COUNTERS = (stencil3d.LAUNCHES, stencil3d_norm.LAUNCHES, stencil2d.LAUNCHES)
 
 
 def launch_counts() -> dict:
     """Launch count of every kernel wrapper since the last reset."""
-    return {**stencil3d.LAUNCHES, **stencil3d_norm.LAUNCHES}
+    out = {}
+    for counts in _COUNTERS:
+        out.update(counts)
+    return out
 
 
 def reset_launch_counts() -> None:
-    for counts in (stencil3d.LAUNCHES, stencil3d_norm.LAUNCHES):
+    for counts in _COUNTERS:
         for name in counts:
             counts[name] = 0

@@ -4,8 +4,10 @@ The sources in `multigrid_dolfinx_tpu_torch/csrc/*.cu` expose plain C
 entry points, so they compile in seconds without PyTorch's headers.  The
 build runs at the first CUDA call, never at import, and is keyed on a hash
 of the sources and flags: `build/torch_kernels/libmg_torch_<hash>.so`
-under the checkout.  `--fmad=false` keeps the kernels' rounding equal to
-their plain PyTorch versions (no multiply-add contraction).
+under the checkout.  Each source compiles to an object in its own nvcc
+process, all started together, and one more nvcc links the objects.
+`--fmad=false` keeps the kernels' rounding equal to their plain PyTorch
+versions (no multiply-add contraction).
 """
 from __future__ import annotations
 
@@ -19,10 +21,10 @@ from typing import Optional
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
-SOURCES = ("stencil3d.cu", "stencil3d_norm.cu")
+SOURCES = ("stencil3d.cu", "stencil3d_norm.cu", "stencil2d.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 # entry point -> argument kinds: p pointer (device pointer or stream),
@@ -37,6 +39,16 @@ SIGNATURES = {
     "mg_tet_quad_partials": "i",
     "mg_residual_tet_quad_f32": "ppppiffidp",
     "mg_residual_tet_quad_f64": "ppppiddidp",
+    "mg_jacobi_sweep_2d_f32": "pppifffp",
+    "mg_jacobi_sweep_2d_f64": "pppidddp",
+    "mg_rb_sweep_2d_f32": "pppip",
+    "mg_rb_sweep_2d_f64": "pppip",
+    "mg_residual_2d_f32": "pppip",
+    "mg_residual_2d_f64": "pppip",
+    "mg_restrict_pt_2d_f32": "ppiip",
+    "mg_restrict_pt_2d_f64": "ppiip",
+    "mg_prolong_linear_2d_f32": "ppiip",
+    "mg_prolong_linear_2d_f64": "ppiip",
 }
 
 _LIB = None
@@ -72,13 +84,28 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(CSRC_DIR / s) for s in SOURCES]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
+    nvcc = _find_nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{Path(s).stem}.o" for s in SOURCES]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(CSRC_DIR / src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for src, obj in zip(SOURCES, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    build_log = "".join(f"== {s}\n{log}" for s, log in zip(SOURCES, logs))
+    failed = [s for s, p in zip(SOURCES, procs) if p.returncode != 0]
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n{build_log}")
+    tmp = BUILD_DIR / f"{tag}.tmp.so"
+    proc = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                           *map(str, objs)], capture_output=True, text=True)
+    build_log += f"== link\n{proc.stdout}{proc.stderr}"
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                           f"{build_log}")
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, out)
     return out
 

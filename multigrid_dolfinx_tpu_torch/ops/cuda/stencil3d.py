@@ -138,7 +138,7 @@ def restrict_residual_pt(v: torch.Tensor, f: torch.Tensor, lmf: int,
     return out
 
 
-def _combine121(x: torch.Tensor, axis: int) -> torch.Tensor:
+def combine121(x: torch.Tensor, axis: int) -> torch.Tensor:
     """(x[2i-1] + 2 x[2i]) + x[2i+1] along a zero-padded axis."""
     n = x.shape[axis]
 
@@ -158,7 +158,7 @@ def restrict_residual_pt_ref(v: torch.Tensor, f: torch.Tensor, lmf: int,
     r = torch.where(interior, f - (wc * vt + woff * nbr_sum_ref(vt)), 0.0)
     g = F.pad(r, (1, 1, 1, 1, 1, 1))
     for axis in range(3):
-        g = _combine121(g, axis)
+        g = combine121(g, axis)
     return torch.where(box_interior_mask(g.shape, lmc, v.device),
                        g * 0.125, 0.0)
 
@@ -186,7 +186,7 @@ def prolong_linear(c: torch.Tensor, lmf: int,
     return out
 
 
-def _interp_axis(x: torch.Tensor, axis: int) -> torch.Tensor:
+def interp_axis(x: torch.Tensor, axis: int) -> torch.Tensor:
     """Interleave x with the midpoints 0.5 * (x[j] + x[j+1]) along axis."""
     n = x.shape[axis]
     shape = list(x.shape)
@@ -206,7 +206,7 @@ def _interp_axis(x: torch.Tensor, axis: int) -> torch.Tensor:
 def prolong_linear_ref(c: torch.Tensor, lmf: int,
                        v: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain version of prolong_linear: x first, then y, then z."""
-    e = _interp_axis(_interp_axis(_interp_axis(c, 2), 1), 0)
+    e = interp_axis(interp_axis(interp_axis(c, 2), 1), 0)
     if e.shape[0] != lmf:
         raise ValueError(f"lmf={lmf} does not match coarse {tuple(c.shape)}")
     return e if v is None else v + e

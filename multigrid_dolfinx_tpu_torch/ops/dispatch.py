@@ -10,9 +10,11 @@ from __future__ import annotations
 
 import torch
 
-from .cuda import stencil3d, stencil3d_norm
+from .cuda import stencil2d, stencil3d, stencil3d_norm
 from .operators import StencilOperator
 
+POISSON5_2D_OFFSETS = ((-1, 0), (0, -1), (0, 0), (0, 1), (1, 0))
+POISSON5_2D_WEIGHTS = (-1.0, -1.0, 4.0, -1.0, -1.0)
 POISSON7_3D_OFFSETS = (
     (-1, 0, 0), (0, -1, 0), (0, 0, -1), (0, 0, 0),
     (0, 0, 1), (0, 1, 0), (1, 0, 0),
@@ -29,6 +31,23 @@ def const7_weights(A: StencilOperator):
     if not all(abs(o - offs[0]) < 1e-12 * abs(w[center]) for o in offs):
         return None
     return float(w[center]), float(offs[0])
+
+
+def const5_ok(A: StencilOperator) -> bool:
+    """Is A the 2D const-5 operator the stencil2d kernels hard-code: the
+    P1 stiffness (-1, -1, 4, -1, -1), exactly (JAX dispatch.pallas_eligible,
+    2D branch)?"""
+    return (A.is_const and A.offsets == POISSON5_2D_OFFSETS
+            and tuple(A.const_weights) == POISSON5_2D_WEIGHTS)
+
+
+def require_const5(A: StencilOperator) -> None:
+    """Raise for a 2D operator the const-5 kernels and their plain
+    versions do not compute, on every device."""
+    if not const5_ok(A):
+        raise NotImplementedError(
+            "2D operators other than the const-5 P1 stencil (variable "
+            "kappa, Galerkin, screened) are ROADMAP.md queue 1, item 14")
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -61,3 +80,33 @@ def residual_tet_quad(v, f, lm, wc, woff, diagonal):
     if _on_cuda(v):
         return stencil3d_norm.residual_tet_quad(v, f, lm, wc, woff, diagonal)
     return stencil3d_norm.residual_tet_quad_ref(v, f, lm, wc, woff, diagonal)
+
+
+def jacobi_sweep_2d(v, df, lm, w):
+    if _on_cuda(v):
+        return stencil2d.jacobi_sweep(v, df, lm, w)
+    return stencil2d.jacobi_sweep_ref(v, df, lm, w)
+
+
+def rb_sweep_2d(v, f, lm):
+    if _on_cuda(v):
+        return stencil2d.rb_sweep(v, f, lm)
+    return stencil2d.rb_sweep_ref(v, f, lm)
+
+
+def residual_2d(v, f, lm):
+    if _on_cuda(v):
+        return stencil2d.residual(v, f, lm)
+    return stencil2d.residual_ref(v, f, lm)
+
+
+def restrict_pt_2d(r, lmf, lmc):
+    if _on_cuda(r):
+        return stencil2d.restrict_pt(r, lmf, lmc)
+    return stencil2d.restrict_pt_ref(r, lmf, lmc)
+
+
+def prolong_linear_2d(c, lmf):
+    if _on_cuda(c):
+        return stencil2d.prolong_linear(c, lmf)
+    return stencil2d.prolong_linear_ref(c, lmf)

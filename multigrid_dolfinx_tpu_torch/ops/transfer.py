@@ -1,11 +1,13 @@
-"""Grid transfers as plain torch ops (3D, the main path's pair).
+"""Grid transfers as plain torch ops, in 2D and 3D.
 
-`restrict_pt` is the variational P^T (2^d times the reference's full
-weighting) and `prolong_linear` the trilinear interpolation, each in the
-association order of `multigrid_dolfinx_tpu.ops.transfer`.  The V-cycle
-runs the fused kernels instead (ops.cuda.stencil3d); these plain two-step
-forms are what the W/F cycles of ROADMAP.md queue 1, item 8 will use.
-Injection, full weighting and the P1 embedding are queue 1, item 5.
+`restrict_inject` is the reference's injection (coarse[p] = fine[2p]),
+`restrict_pt` the variational P^T (2^d times the reference's full
+weighting) and `prolong_linear` the multilinear interpolation, each in
+the association order of `multigrid_dolfinx_tpu.ops.transfer`.  The
+V-cycle runs injection from here and the kernels for the rest
+(ops.cuda); the plain two-step forms are what the W/F cycles of
+ROADMAP.md queue 1, item 8 will use.  Full weighting as a cycle option
+and the P1 embedding are queue 1, item 5.
 """
 from __future__ import annotations
 
@@ -13,6 +15,11 @@ import itertools
 
 import torch
 import torch.nn.functional as F
+
+
+def restrict_inject(u_fine: torch.Tensor) -> torch.Tensor:
+    """Coarse[p] = Fine[2p] (pure injection), contiguous."""
+    return u_fine[(slice(None, None, 2),) * u_fine.ndim].contiguous()
 
 
 def prolong_linear(u_coarse: torch.Tensor) -> torch.Tensor:
@@ -58,3 +65,18 @@ def restrict_pt(u_fine: torch.Tensor) -> torch.Tensor:
     """Variational restriction P^T = 2^d * full weighting."""
     return (2.0 ** u_fine.ndim) * restrict_full_weighting(u_fine)
 
+
+def restrict(u_fine: torch.Tensor, kind: str) -> torch.Tensor:
+    if kind == "injection":
+        return restrict_inject(u_fine)
+    if kind == "pt":
+        return restrict_pt(u_fine)
+    raise NotImplementedError(
+        f"restriction {kind!r} is ROADMAP.md queue 1, item 5")
+
+
+def prolong(u_coarse: torch.Tensor, kind: str) -> torch.Tensor:
+    if kind == "bilinear":
+        return prolong_linear(u_coarse)
+    raise NotImplementedError(
+        f"prolongation {kind!r} is ROADMAP.md queue 1, item 5")

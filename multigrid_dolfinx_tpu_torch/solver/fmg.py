@@ -4,7 +4,9 @@ Mirrors `multigrid_dolfinx_tpu.solver.fmg`.  PyTorch runs eagerly, so
 `tolerance_solve` is a host loop with one scalar read per cycle (the
 residual norm); the histories are preallocated NaN-filled tensors on the
 device, as the JAX package's fixed-size buffers.  The per-cycle check
-r = f - A v, sqrt(r^T M r) runs as kernel K4 in one pass over v and f.
+r = f - A v, sqrt(r^T M r) runs as kernel K4 in one pass over v and f in
+3D; in 2D it is the residual kernel K7 and the plain class-table mass
+norm, as the JAX package computes it (it has no fused 2D norm kernel).
 """
 from __future__ import annotations
 
@@ -67,9 +69,11 @@ def error_norm(hier: Hierarchy, u: torch.Tensor) -> torch.Tensor:
 
 def check_norm(hier: Hierarchy, v: torch.Tensor,
                f: torch.Tensor) -> torch.Tensor:
-    """The per-cycle check sqrt(r^T M r), r = f - A v, through kernel K4;
-    returned in v's dtype."""
+    """The per-cycle check sqrt(r^T M r), r = f - A v: through kernel K4
+    in 3D, through K7 and the class-table norm in 2D; in v's dtype."""
     lv = hier.finest
+    if v.ndim == 2:
+        return residual_norm(hier, compute_residual(lv, v, f))
     wc, woff = dispatch.const7_weights(lv.A)
     q = dispatch.residual_tet_quad(v, f, lv.n + 1, wc, woff,
                                    hier.M_fine.uniform_p1_mass)
@@ -121,7 +125,7 @@ def fmg_solve(hier: Hierarchy, spec: CycleSpec, mode: str = "tol",
     finest (collect_debug then also returns the finest cycle's internals)."""
     if mode not in ("tol", "fixed"):
         raise ValueError(f"mode must be 'tol' or 'fixed', got {mode!r}")
-    check_slice(spec)
+    check_slice(spec, hier.finest.b.ndim)
     nlev = hier.num_levels
     v = hier.coarse.solve(hier.levels[0].b)
     debug = None
@@ -167,7 +171,7 @@ def fmg_solve(hier: Hierarchy, spec: CycleSpec, mode: str = "tol",
 
 def resume_solve(hier: Hierarchy, spec: CycleSpec, v0) -> SolveResult:
     """Continue V-cycling from a previous iterate until tolerance."""
-    check_slice(spec)
+    check_slice(spec, hier.finest.b.ndim)
     b = hier.finest.b
     v0 = torch.as_tensor(v0, dtype=b.dtype, device=b.device)
     return tolerance_solve(hier, spec, v0, b)

@@ -1,16 +1,19 @@
-"""Lean hierarchy construction: per-level b and g built on the device.
+"""Hierarchy construction: per-level operators, b and g on the device.
 
-Mirrors `multigrid_dolfinx_tpu.solver.hierarchy` for the 3D P1 const
-path.  Frozen dataclasses take the place of the JAX pytrees; every tensor
-lives on the device given to `build_lean_hierarchy`.  Storage is the
-logical (n+1)^3 box, contiguous and unpadded, so there is no TPU tile
-padding, no cropped layout and no precomputed full-layout reference norm.
+Mirrors `multigrid_dolfinx_tpu.solver.hierarchy` for the P1 const path in
+2D and 3D: `build_lean_hierarchy` builds b and g on the device from a
+tiny assembled prototype, `build_hierarchy` assembles every level on the
+host (the reference's rediscretisation) and ships it.  Frozen
+dataclasses take the place of the JAX pytrees; every tensor lives on the
+device given to the build function.  Storage is the logical (n+1)^d box,
+contiguous and unpadded, so there is no TPU tile padding, no cropped
+layout and no precomputed full-layout reference norm.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -21,7 +24,7 @@ from ..fem.fast_const import (build_const_template, device_level_arrays,
 from ..fem.norms import ErrorQuad, error_quadrature
 from ..mesh import build_grid_hierarchy
 from ..ops.coarse import CoarseSolver, build_coarse_solver
-from ..ops.operators import StencilOperator
+from ..ops.operators import StencilOperator, detect_const_stencil
 from ..ops.smoothers import SmootherData
 
 DTYPES = {"float32": torch.float32, "float64": torch.float64}
@@ -92,8 +95,6 @@ def resolve_device(device) -> torch.device:
 def check_problem(config: SolverConfig) -> None:
     """Raise NotImplementedError for problems outside the port's slice."""
     p, hs = config.problem, config.hierarchy
-    if p.ndim != 3:
-        raise NotImplementedError("2D is ROADMAP.md queue 1, item 11")
     if p.degree != 1:
         raise NotImplementedError("P2 is ROADMAP.md queue 1, item 16")
     if p.kappa is not None or hs.coarse_operator != "rediscretize":
@@ -111,49 +112,39 @@ def check_problem(config: SolverConfig) -> None:
 def mass_operator(offsets, class_tables: torch.Tensor, n: int,
                   diagonal: str) -> StencilOperator:
     """Finest-level consistent P1 mass in class-table form."""
+    offsets = tuple(map(tuple, offsets))
     return StencilOperator(
-        offsets=tuple(map(tuple, offsets)), logical_m=n + 1,
-        grid_shape=(n + 1,) * 3, class_tables=class_tables,
+        offsets=offsets, logical_m=n + 1,
+        grid_shape=(n + 1,) * len(offsets[0]), class_tables=class_tables,
         uniform_p1_mass=diagonal,
     )
 
 
-def build_lean_hierarchy(config: SolverConfig, device) -> Hierarchy:
-    """Scale-mode hierarchy for constant-coefficient 3D P1 on `device`.
+def const_level(offsets, weights, grid, b: torch.Tensor, g: torch.Tensor,
+                config: SolverConfig, lmax: Optional[float] = None,
+                dinv: Optional[torch.Tensor] = None) -> Level:
+    """A level with a plane-free const operator of these weights; lmax
+    defaults to the exact Dirichlet value (2.0 if the stencil has
+    diagonal couplings)."""
+    if lmax is None:
+        lmax = const_lmax_dirichlet(offsets, weights, grid.n)
+    A = StencilOperator(
+        offsets=tuple(map(tuple, offsets)), logical_m=grid.points_per_dim,
+        grid_shape=grid.shape, const_weights=tuple(map(float, weights)))
+    sm = SmootherData(lmax=2.0 if lmax is None else lmax,
+                      omega=config.cycle.omega, dinv=dinv)
+    return Level(A=A, sm=sm, b=b, g=g, n=grid.n, level=grid.level)
 
-    Levels carry plane-free const operators (weights as Python floats,
-    interior masks from index arithmetic) and b, g built on the device
-    from a tiny assembled prototype (fem.fast_const); the mass operator
-    is a 15 x 27 class table and the error norm is static metadata.  Only
-    b and g cost device memory per level."""
-    check_problem(config)
-    device = resolve_device(device)
-    dtype = DTYPES[config.dtype]
-    grids = build_grid_hierarchy(config.hierarchy, ndim=3)
-    template = build_const_template(config.problem)
-    h0 = 1.0 / template.proto_n
 
-    levels = []
-    for g in grids:
-        b, gdir = device_level_arrays(template, g, config.problem, dtype,
-                                      device)
-        scale = g.h / h0          # stiffness scales as h^(d-2) = h in 3D
-        w_level = tuple(w * scale for w in template.weights)
-        lmax = const_lmax_dirichlet(template.offsets, w_level, g.n)
-        A = StencilOperator(
-            offsets=template.offsets, logical_m=g.points_per_dim,
-            grid_shape=g.shape, const_weights=w_level)
-        sm = SmootherData(lmax=2.0 if lmax is None else lmax,
-                          omega=config.cycle.omega)
-        levels.append(Level(A=A, sm=sm, b=b, g=gdir, n=g.n, level=g.level))
-
-    asm0 = fem_assembly.assemble_level(grids[0], config.problem)
+def _finish(config: SolverConfig, levels, asm0, grids, dtype,
+            device) -> Hierarchy:
+    """Coarse factor, finest mass tables and error quadrature."""
     coarse = build_coarse_solver(asm0.offsets, asm0.A_planes,
                                  kind=config.cycle.coarse_solver,
                                  device=device)
     m_offsets, m_tables = mass_class_tables(config.problem)
     g_f = grids[-1]
-    h_scale = (g_f.h * 4.0) ** 3                   # prototype h0 = 1/4
+    h_scale = (g_f.h * 4.0) ** g_f.ndim            # prototype h0 = 1/4
     M_fine = mass_operator(
         m_offsets,
         torch.as_tensor(m_tables * h_scale, dtype=dtype, device=device),
@@ -162,3 +153,60 @@ def build_lean_hierarchy(config: SolverConfig, device) -> Hierarchy:
         levels=tuple(levels), coarse=coarse, M_fine=M_fine,
         err_quad=error_quadrature(g_f, config.problem),
     )
+
+
+def build_lean_hierarchy(config: SolverConfig, device) -> Hierarchy:
+    """Scale-mode hierarchy for constant-coefficient P1 on `device`.
+
+    Levels carry plane-free const operators (weights as Python floats,
+    interior masks from index arithmetic) and b, g built on the device
+    from a tiny assembled prototype (fem.fast_const); the mass operator
+    is a class table (9 x 9 in 2D, 15 x 27 in 3D) and the error norm is
+    static metadata.  Only b and g cost device memory per level."""
+    check_problem(config)
+    device = resolve_device(device)
+    dtype = DTYPES[config.dtype]
+    ndim = config.problem.ndim
+    grids = build_grid_hierarchy(config.hierarchy, ndim=ndim)
+    template = build_const_template(config.problem)
+    h0 = 1.0 / template.proto_n
+
+    levels = []
+    for g in grids:
+        b, gdir = device_level_arrays(template, g, config.problem, dtype,
+                                      device)
+        scale = (g.h / h0) ** (ndim - 2)   # stiffness scales as h^(d-2)
+        w_level = tuple(w * scale for w in template.weights)
+        levels.append(const_level(template.offsets, w_level, g, b, gdir,
+                                  config))
+    asm0 = fem_assembly.assemble_level(grids[0], config.problem)
+    return _finish(config, levels, asm0, grids, dtype, device)
+
+
+def build_hierarchy(config: SolverConfig, device) -> Hierarchy:
+    """Assembled hierarchy: every level assembled on the host with
+    dolfinx's Dirichlet semantics (the reference's per-level
+    rediscretisation) and shipped to `device`, with b, g and the Jacobi
+    dinv = 1/diag A stored per level.  The operators are detected as
+    constant stencils and run plane-free, as the JAX package does; the
+    reference's exact run, models.poisson2d(), builds this way."""
+    check_problem(config)
+    device = resolve_device(device)
+    dtype = DTYPES[config.dtype]
+    grids = build_grid_hierarchy(config.hierarchy, ndim=config.problem.ndim)
+    asms = fem_assembly.assemble_hierarchy(grids, config.problem)
+
+    def tensor(a):
+        return torch.tensor(a, dtype=dtype, device=device)
+
+    levels = []
+    for g, asm in zip(grids, asms):
+        w = detect_const_stencil(asm.offsets, asm.A_planes, asm.interior)
+        if w is None:
+            raise NotImplementedError(
+                "stored-planes operators are ROADMAP.md queue 1, item 14")
+        center = asm.offsets.index((0,) * g.ndim)
+        levels.append(const_level(asm.offsets, w, g, tensor(asm.b),
+                                  tensor(asm.g), config,
+                                  dinv=tensor(1.0 / asm.A_planes[center])))
+    return _finish(config, levels, asms[0], grids, dtype, device)
