@@ -1,4 +1,5 @@
-// Const-7-point multigrid kernels for Hopper (sm_90a): K1-K3 of the port.
+// Const-7-point multigrid kernels for Hopper (sm_90a): K1-K3, K10 and
+// K11 of the port.
 //
 // Storage is the logical lm^3 node box, C-order (z, y, x), contiguous and
 // unpadded.  Interior means 1 <= index <= lm-2 on every axis.  Every sum
@@ -12,29 +13,17 @@
 
 #include <cuda_runtime.h>
 
+#include "stencil3d.cuh"
+
 namespace {
 
+using mg3d::inside;
+using mg3d::interior;
+using mg3d::nbr_sum;
+using mg3d::prolong_point;
+using mg3d::restrict_point;
+
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ bool inside(int i, int lm) {
-    return i >= 1 && i <= lm - 2;
-}
-
-// 6-neighbour sum of the interior-masked field around interior point
-// (z, y, x), in the order (z-1)+(z+1)+(y-1)+(y+1)+(x-1)+(x+1)
-// (stencil3d.py _nbr_sum).  Neighbours outside the interior read as 0.
-template <typename T>
-__device__ __forceinline__ T nbr_sum(const T* v, long long p, int z, int y,
-                                     int x, int lm) {
-    const long long sz = (long long)lm * lm, sy = lm;
-    T zm = inside(z - 1, lm) ? v[p - sz] : T(0);
-    T zp = inside(z + 1, lm) ? v[p + sz] : T(0);
-    T ym = inside(y - 1, lm) ? v[p - sy] : T(0);
-    T yp = inside(y + 1, lm) ? v[p + sy] : T(0);
-    T xm = inside(x - 1, lm) ? v[p - 1] : T(0);
-    T xp = inside(x + 1, lm) ? v[p + 1] : T(0);
-    return ((((zm + zp) + ym) + yp) + xm) + xp;
-}
 
 // K1: one colour of the red-black Gauss-Seidel sweep, one thread per
 // point.  Points of `color` ((x+y+z) % 2 == color) take the candidate
@@ -63,25 +52,10 @@ __global__ void rb_color_kernel(const T* src, const T* __restrict__ f, T* out,
     out[p] = (f[p] + neg_woff * s) * inv_wc;
 }
 
-// Residual r = f - (wc v + woff S) at a fine point, 0 off the interior
-// (the 'pt' correction-equation masking).
-template <typename T>
-__device__ __forceinline__ T masked_residual(const T* __restrict__ v,
-                                             const T* __restrict__ f, int z,
-                                             int y, int x, int lm, T wc,
-                                             T woff) {
-    if (!(inside(z, lm) && inside(y, lm) && inside(x, lm))) return T(0);
-    const long long p = ((long long)z * lm + y) * lm + x;
-    const T av = wc * v[p] + woff * nbr_sum(v, p, z, y, x, lm);
-    return f[p] - av;
-}
-
 // K2: fused residual + variational P^T restriction, one thread per coarse
-// point I.  The coarse value is 0.125 * [1 2 1]^3 applied to the masked
-// fine residual around 2I, combined z first, then y, then x (the order of
-// stencil3d.py _restrict_residual_kernel and _plane_restrict); 0 outside
-// the coarse interior.  The 27 residuals are recomputed from v and f,
-// which L1/L2 hold for the neighbouring threads.
+// point (restrict_point in stencil3d.cuh).  The 27 residuals around 2I
+// are recomputed from v and f, which L1/L2 hold for the neighbouring
+// threads.
 template <typename T>
 __global__ void restrict_residual_pt_kernel(const T* __restrict__ v,
                                             const T* __restrict__ f,
@@ -93,44 +67,11 @@ __global__ void restrict_residual_pt_kernel(const T* __restrict__ v,
     const int xc = (int)(q % lmc);
     const int yc = (int)((q / lmc) % lmc);
     const int zc = (int)(q / ((long long)lmc * lmc));
-    if (!(inside(zc, lmc) && inside(yc, lmc) && inside(xc, lmc))) {
-        out[q] = T(0);
-        return;
-    }
-    const int zf = 2 * zc, yf = 2 * yc, xf = 2 * xc;
-    T gy[3];
-    for (int dx = -1; dx <= 1; ++dx) {
-        T gz[3];
-        for (int dy = -1; dy <= 1; ++dy) {
-            const T lo = masked_residual(v, f, zf - 1, yf + dy, xf + dx, lmf, wc, woff);
-            const T mid = masked_residual(v, f, zf, yf + dy, xf + dx, lmf, wc, woff);
-            const T hi = masked_residual(v, f, zf + 1, yf + dy, xf + dx, lmf, wc, woff);
-            gz[dy + 1] = (lo + T(2) * mid) + hi;
-        }
-        gy[dx + 1] = (gz[0] + T(2) * gz[1]) + gz[2];
-    }
-    out[q] = ((gy[0] + T(2) * gy[1]) + gy[2]) * T(0.125);
+    out[q] = restrict_point(v, f, zc, yc, xc, lmf, lmc, wc, woff);
 }
 
-// K3: trilinear prolongation, one thread per fine point, with the
-// optional fused correction out = v + P(c).  Interpolates in x, then y,
-// then z, as stencil3d.py _plane_prolong / _prolong_kernel do.
-template <typename T>
-__device__ __forceinline__ T interp_x(const T* __restrict__ c, int kz, int jy,
-                                      int xf, int lmc) {
-    const T* row = c + ((long long)kz * lmc + jy) * lmc;
-    if ((xf & 1) == 0) return row[xf >> 1];
-    return T(0.5) * (row[xf >> 1] + row[(xf >> 1) + 1]);
-}
-
-template <typename T>
-__device__ __forceinline__ T interp_xy(const T* __restrict__ c, int kz, int yf,
-                                       int xf, int lmc) {
-    if ((yf & 1) == 0) return interp_x(c, kz, yf >> 1, xf, lmc);
-    return T(0.5) * (interp_x(c, kz, yf >> 1, xf, lmc) +
-                     interp_x(c, kz, (yf >> 1) + 1, xf, lmc));
-}
-
+// K3: trilinear prolongation, one thread per fine point (prolong_point in
+// stencil3d.cuh), with the optional fused correction out = v + P(c).
 template <typename T>
 __global__ void prolong_linear_kernel(const T* __restrict__ c,
                                       const T* __restrict__ v,
@@ -141,14 +82,50 @@ __global__ void prolong_linear_kernel(const T* __restrict__ c,
     const int xf = (int)(p % lmf);
     const int yf = (int)((p / lmf) % lmf);
     const int zf = (int)(p / ((long long)lmf * lmf));
-    T e;
-    if ((zf & 1) == 0) {
-        e = interp_xy(c, zf >> 1, yf, xf, lmc);
-    } else {
-        e = T(0.5) * (interp_xy(c, zf >> 1, yf, xf, lmc) +
-                      interp_xy(c, (zf >> 1) + 1, yf, xf, lmc));
-    }
+    const T e = prolong_point(c, zf, yf, xf, lmc);
     out[p] = v ? v[p] + e : e;
+}
+
+// K10: r = f - A v, replacing stencil3d.py residual (_residual_emit):
+// A v = wc v + woff S(v~) on the interior, v on the boundary (identity
+// rows), so boundary rows give f - v.  One thread per point in 32 x 8
+// blocks, one z plane per grid slice, 32-bit indices.  v and f may be the
+// same array (the JAX package forms A p as p - r(p, p)): both are only
+// read, so neither pointer is __restrict__; out never aliases them.
+template <typename T>
+__global__ void residual_kernel(const T* v, const T* f, T* __restrict__ out,
+                                int lm, T wc, T woff) {
+    const int x = blockIdx.x * mg3d::kBx + threadIdx.x;
+    const int y = blockIdx.y * mg3d::kBy + threadIdx.y;
+    const int z = blockIdx.z;
+    if (x >= lm || y >= lm) return;
+    const int p = (z * lm + y) * lm + x;
+    const T av = interior(z, y, x, lm)
+                     ? wc * v[p] + woff * nbr_sum(v, p, z, y, x, lm)
+                     : v[p];
+    out[p] = f[p] - av;
+}
+
+// K11: one weighted-Jacobi sweep, replacing stencil3d.py jacobi_sweep
+// (_jacobi_emit): out = keep v + w cand, with cand = (f + (-woff) S(v~))
+// * inv_wc on the interior and f on the boundary (_gs_candidate), so
+// boundary rows mix to (1-w) v + w f as the reference's Jacobi does.
+// keep = 1-w, w, inv_wc = 1/wc and neg_woff arrive rounded to T by the
+// wrapper.  Out of place: the smoother ping-pongs two buffers.
+template <typename T>
+__global__ void jacobi_kernel(const T* __restrict__ v,
+                              const T* __restrict__ f, T* __restrict__ out,
+                              int lm, T inv_wc, T neg_woff, T keep, T w) {
+    const int x = blockIdx.x * mg3d::kBx + threadIdx.x;
+    const int y = blockIdx.y * mg3d::kBy + threadIdx.y;
+    const int z = blockIdx.z;
+    if (x >= lm || y >= lm) return;
+    const int p = (z * lm + y) * lm + x;
+    const T cand = interior(z, y, x, lm)
+                       ? (f[p] + neg_woff * nbr_sum(v, p, z, y, x, lm)) *
+                             inv_wc
+                       : f[p];
+    out[p] = keep * v[p] + w * cand;
 }
 
 unsigned int blocks_for(long long n) {
@@ -185,9 +162,51 @@ int prolong_linear(const T* c, const T* v, T* out, int lmc, int lmf,
     return (int)cudaGetLastError();
 }
 
+template <typename T>
+int residual(const T* v, const T* f, T* out, int lm, T wc, T woff,
+             cudaStream_t stream) {
+    const dim3 block(mg3d::kBx, mg3d::kBy);
+    residual_kernel<T><<<mg3d::grid_for(lm), block, 0, stream>>>(v, f, out,
+                                                                 lm, wc, woff);
+    return (int)cudaGetLastError();
+}
+
+template <typename T>
+int jacobi_sweep(const T* v, const T* f, T* out, int lm, T inv_wc,
+                 T neg_woff, T keep, T w, cudaStream_t stream) {
+    const dim3 block(mg3d::kBx, mg3d::kBy);
+    jacobi_kernel<T><<<mg3d::grid_for(lm), block, 0, stream>>>(
+        v, f, out, lm, inv_wc, neg_woff, keep, w);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
+
+int mg_residual_f32(const float* v, const float* f, float* out, int lm,
+                    float wc, float woff, void* stream) {
+    return residual<float>(v, f, out, lm, wc, woff, (cudaStream_t)stream);
+}
+
+int mg_residual_f64(const double* v, const double* f, double* out, int lm,
+                    double wc, double woff, void* stream) {
+    return residual<double>(v, f, out, lm, wc, woff, (cudaStream_t)stream);
+}
+
+int mg_jacobi_sweep_f32(const float* v, const float* f, float* out, int lm,
+                        float inv_wc, float neg_woff, float keep, float w,
+                        void* stream) {
+    return jacobi_sweep<float>(v, f, out, lm, inv_wc, neg_woff, keep, w,
+                               (cudaStream_t)stream);
+}
+
+int mg_jacobi_sweep_f64(const double* v, const double* f, double* out,
+                        int lm, double inv_wc, double neg_woff, double keep,
+                        double w, void* stream) {
+    return jacobi_sweep<double>(v, f, out, lm, inv_wc, neg_woff, keep, w,
+                                (cudaStream_t)stream);
+}
 
 int mg_rb_sweep_f32(const float* v, const float* f, float* out, int lm,
                     float inv_wc, float neg_woff, void* stream) {

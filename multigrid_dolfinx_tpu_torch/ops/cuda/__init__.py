@@ -3,9 +3,12 @@
 Importing this package never touches nvcc or ctypes: the library is
 built and loaded at the first CUDA launch (ops.cuda.build).
 """
-from . import stencil2d, stencil3d, stencil3d_norm
+from . import (stencil2d, stencil3d, stencil3d_cheby, stencil3d_norm,
+               stencil3d_tail)
 
-_COUNTERS = (stencil3d.LAUNCHES, stencil3d_norm.LAUNCHES, stencil2d.LAUNCHES)
+_COUNTERS = (stencil3d.LAUNCHES, stencil3d_cheby.LAUNCHES,
+             stencil3d_tail.LAUNCHES, stencil3d_norm.LAUNCHES,
+             stencil2d.LAUNCHES)
 
 
 def launch_counts() -> dict:

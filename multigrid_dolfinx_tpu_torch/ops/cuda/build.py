@@ -21,7 +21,9 @@ from typing import Optional
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
-SOURCES = ("stencil3d.cu", "stencil3d_norm.cu", "stencil2d.cu")
+SOURCES = ("stencil3d.cu", "stencil3d_cheby.cu", "stencil3d_tail.cu",
+           "stencil3d_norm.cu", "stencil2d.cu")
+HEADERS = ("stencil3d.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -36,6 +38,16 @@ SIGNATURES = {
     "mg_restrict_residual_pt_f64": "pppiiddp",
     "mg_prolong_linear_f32": "pppiip",
     "mg_prolong_linear_f64": "pppiip",
+    "mg_residual_f32": "pppiffp",
+    "mg_residual_f64": "pppiddp",
+    "mg_jacobi_sweep_f32": "pppiffffp",
+    "mg_jacobi_sweep_f64": "pppiddddp",
+    "mg_cheby_step_f32": "ppppifffffp",
+    "mg_cheby_step_f64": "ppppidddddp",
+    "mg_tail_down_f32": "pppppiip",
+    "mg_tail_down_f64": "pppppiip",
+    "mg_tail_up_f32": "ppppppiip",
+    "mg_tail_up_f64": "ppppppiip",
     "mg_tet_quad_partials": "i",
     "mg_residual_tet_quad_f32": "ppppiffidp",
     "mg_residual_tet_quad_f64": "ppppiddidp",
@@ -72,7 +84,7 @@ def _find_nvcc() -> str:
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update((CSRC_DIR / name).read_bytes())
     return BUILD_DIR / f"libmg_torch_{h.hexdigest()[:16]}.so"
 

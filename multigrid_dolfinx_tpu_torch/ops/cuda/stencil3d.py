@@ -1,4 +1,5 @@
-"""Const-7-point multigrid kernels K1-K3: CUDA wrappers and plain versions.
+"""Const-7-point multigrid kernels K1-K3, K10, K11: CUDA wrappers and
+plain versions.
 
 Each `name(...)` launches the hand-written Hopper kernel of
 `csrc/stencil3d.cu` on a CUDA tensor (and raises on anything else); each
@@ -24,6 +25,17 @@ K3 prolong_linear replaces stencil3d.py prolong_linear (v=None) and
   per fine point written plus 4 read for v; the coarse array is 1/8 of
   that and stays in L2.  Design: one thread per fine point, interpolated
   in x, then y, then z.
+K10 residual replaces stencil3d.py residual: r = f - (wc v + woff S(v~))
+  inside, f - v on the boundary.  Bound: memory, 8 bytes read (v, f) and
+  4 written per point in f32.  Design: one thread per point in 32 x 8
+  blocks on x-contiguous rows, 32-bit indices (lm <= MAX_LM).  v and f may
+  be the same tensor (the JAX package's A p = p - r(p, p)); the output is
+  always a fresh tensor.
+K11 jacobi_sweep replaces stencil3d.py jacobi_sweep: (1-w) v + w cand,
+  cand = (f + (-woff) S(v~)) / wc inside and f on the boundary, so
+  boundary rows mix to (1-w) v + w f.  Bound: memory, as K10.  Design:
+  as K10, out of place into a caller-given buffer, so the smoother
+  ping-pongs two buffers and never writes the caller's v.
 """
 from __future__ import annotations
 
@@ -38,7 +50,11 @@ from ..operators import box_interior_mask
 #: Calls of each wrapper that launched its kernel(s) (rb_sweep is two
 #: colour launches per call).  Reset with ops.cuda.reset_launch_counts().
 LAUNCHES = {"rb_sweep": 0, "restrict_residual_pt": 0,
-            "prolong_linear": 0, "prolong_linear_add": 0}
+            "prolong_linear": 0, "prolong_linear_add": 0,
+            "residual": 0, "jacobi_sweep": 0}
+
+#: Largest lm whose lm^3 point index fits the 32-bit ints of K10-K12.
+MAX_LM = 1290
 
 _DTYPES = (torch.float32, torch.float64)
 
@@ -62,6 +78,13 @@ def suffix(dtype: torch.dtype) -> str:
 
 def stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_lm(lm: int) -> None:
+    """Raise unless lm^3 fits the 32-bit point index of K10-K12."""
+    if not 3 <= lm <= MAX_LM:
+        raise ValueError(f"lm={lm} outside the kernels' range 3..{MAX_LM} "
+                         "(32-bit point indices)")
 
 
 # ----------------------------------------------------------------------
@@ -210,3 +233,72 @@ def prolong_linear_ref(c: torch.Tensor, lmf: int,
     if e.shape[0] != lmf:
         raise ValueError(f"lmf={lmf} does not match coarse {tuple(c.shape)}")
     return e if v is None else v + e
+
+
+# ----------------------------------------------------------------------
+# K10: residual
+# ----------------------------------------------------------------------
+
+def residual(v: torch.Tensor, f: torch.Tensor, lm: int, wc: float,
+             woff: float) -> torch.Tensor:
+    """r = f - A v into a fresh tensor; v and f may be the same tensor."""
+    check_lm(lm)
+    shape = (lm,) * 3
+    check_tensor(v, "v", shape)
+    check_tensor(f, "f", shape, v.dtype)
+    out = torch.empty_like(v)
+    fn = getattr(build.library(), f"mg_residual_{suffix(v.dtype)}")
+    with torch.cuda.device(v.device):
+        err = fn(v.data_ptr(), f.data_ptr(), out.data_ptr(), lm, wc, woff,
+                 stream(v))
+    build.check(err, "residual")
+    LAUNCHES["residual"] += 1
+    return out
+
+
+def residual_ref(v: torch.Tensor, f: torch.Tensor, lm: int, wc: float,
+                 woff: float) -> torch.Tensor:
+    """Plain version of residual: f - where(interior, wc v~ + woff S(v~),
+    v)."""
+    interior = box_interior_mask(v.shape, lm, v.device)
+    vt = torch.where(interior, v, 0.0)
+    return f - torch.where(interior, wc * vt + woff * nbr_sum_ref(vt), v)
+
+
+# ----------------------------------------------------------------------
+# K11: weighted Jacobi sweep
+# ----------------------------------------------------------------------
+
+def jacobi_sweep(v: torch.Tensor, f: torch.Tensor, lm: int, wc: float,
+                 woff: float, w: float,
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One weighted-Jacobi sweep from v into `out` (a fresh tensor if
+    None); `out` must not be v or f."""
+    check_lm(lm)
+    shape = (lm,) * 3
+    check_tensor(v, "v", shape)
+    check_tensor(f, "f", shape, v.dtype)
+    if out is None:
+        out = torch.empty_like(v)
+    check_tensor(out, "out", shape, v.dtype)
+    if out.data_ptr() in (v.data_ptr(), f.data_ptr()):
+        raise ValueError("jacobi_sweep: out must not alias v or f")
+    fn = getattr(build.library(), f"mg_jacobi_sweep_{suffix(v.dtype)}")
+    with torch.cuda.device(v.device):
+        err = fn(v.data_ptr(), f.data_ptr(), out.data_ptr(), lm, 1.0 / wc,
+                 -woff, 1.0 - w, w, stream(v))
+    build.check(err, "jacobi_sweep")
+    LAUNCHES["jacobi_sweep"] += 1
+    return out
+
+
+def jacobi_sweep_ref(v: torch.Tensor, f: torch.Tensor, lm: int, wc: float,
+                     woff: float, w: float,
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of jacobi_sweep: (1-w) v + w cand, cand the GS
+    candidate (f + (-woff) S(v~)) (1/wc) inside and f on the boundary."""
+    interior = box_interior_mask(v.shape, lm, v.device)
+    vt = torch.where(interior, v, 0.0)
+    cand = torch.where(interior,
+                       (f + (-woff) * nbr_sum_ref(vt)) * (1.0 / wc), f)
+    return torch.add((1.0 - w) * v, w * cand, out=out)

@@ -19,8 +19,7 @@ from __future__ import annotations
 import torch
 
 from . import build
-from .stencil3d import check_tensor, nbr_sum_ref, stream, suffix
-from ..operators import box_interior_mask
+from .stencil3d import check_tensor, residual_ref, stream, suffix
 from ...fem.assembly import simplex_vertex_offsets
 
 LAUNCHES = {"residual_tet_quad": 0}
@@ -63,20 +62,12 @@ def residual_tet_quad(v: torch.Tensor, f: torch.Tensor, lm: int, wc: float,
     return out[0]
 
 
-def residual_unmasked_ref(v: torch.Tensor, f: torch.Tensor, lm: int,
-                          wc: float, woff: float) -> torch.Tensor:
-    """r = f - (wc v + woff S) on interior rows, f - v on boundary rows."""
-    interior = box_interior_mask(v.shape, lm, v.device)
-    vt = torch.where(interior, v, 0.0)
-    return torch.where(interior, f - (wc * vt + woff * nbr_sum_ref(vt)), f - v)
-
-
 def residual_tet_quad_ref(v: torch.Tensor, f: torch.Tensor, lm: int,
                           wc: float, woff: float,
                           diagonal: str) -> torch.Tensor:
     """Plain version of residual_tet_quad (cell values in the working
     type, summed in f64)."""
-    r = residual_unmasked_ref(v, f, lm, wc, woff)
+    r = residual_ref(v, f, lm, wc, woff)
     nc = lm - 1
     tets, counts = tet_tables(diagonal)
 

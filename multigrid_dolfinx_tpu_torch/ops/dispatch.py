@@ -10,7 +10,8 @@ from __future__ import annotations
 
 import torch
 
-from .cuda import stencil2d, stencil3d, stencil3d_norm
+from .cuda import (stencil2d, stencil3d, stencil3d_cheby, stencil3d_norm,
+                   stencil3d_tail)
 from .operators import StencilOperator
 
 POISSON5_2D_OFFSETS = ((-1, 0), (0, -1), (0, 0), (0, 1), (1, 0))
@@ -74,6 +75,36 @@ def prolong_linear(c, lmf, v=None):
     if _on_cuda(c):
         return stencil3d.prolong_linear(c, lmf, v)
     return stencil3d.prolong_linear_ref(c, lmf, v)
+
+
+def residual(v, f, lm, wc, woff):
+    if _on_cuda(v):
+        return stencil3d.residual(v, f, lm, wc, woff)
+    return stencil3d.residual_ref(v, f, lm, wc, woff)
+
+
+def jacobi_sweep(v, f, lm, wc, woff, w, out=None):
+    if _on_cuda(v):
+        return stencil3d.jacobi_sweep(v, f, lm, wc, woff, w, out)
+    return stencil3d.jacobi_sweep_ref(v, f, lm, wc, woff, w, out)
+
+
+def cheby_step(v, vp, f, lm, wc, woff, a, b):
+    if _on_cuda(v):
+        return stencil3d_cheby.cheby_step(v, vp, f, lm, wc, woff, a, b)
+    return stencil3d_cheby.cheby_step_ref(v, vp, f, lm, wc, woff, a, b)
+
+
+def tail_down(f_top, lms, weights, nu1):
+    if _on_cuda(f_top):
+        return stencil3d_tail.tail_down(f_top, lms, weights, nu1)
+    return stencil3d_tail.tail_down_ref(f_top, lms, weights, nu1)
+
+
+def tail_up(v0, f_top, vs, fs, lms, weights, nu2):
+    if _on_cuda(v0):
+        return stencil3d_tail.tail_up(v0, f_top, vs, fs, lms, weights, nu2)
+    return stencil3d_tail.tail_up_ref(v0, f_top, vs, fs, lms, weights, nu2)
 
 
 def residual_tet_quad(v, f, lm, wc, woff, diagonal):

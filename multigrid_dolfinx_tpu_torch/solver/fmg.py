@@ -117,6 +117,31 @@ def tolerance_solve(hier: Hierarchy, spec: CycleSpec, v0: torch.Tensor,
                        converged=converged, diverged=diverged)
 
 
+def fmg_ramp(hier: Hierarchy, spec: CycleSpec, mode: str = "fixed",
+             collect_debug: bool = False):
+    """Nested iteration from the coarsest level up: the coarse solve, then
+    on each finer level the prolonged iterate and mu0 V-cycles.
+    mode='tol' leaves the finest level's prolonged iterate uncycled (the
+    tolerance loop takes it from there).  Returns (v, debug): debug is the
+    finest cycle's internals under collect_debug in fixed mode, else
+    None."""
+    nlev = hier.num_levels
+    v = hier.coarse.solve(hier.levels[0].b)
+    debug = None
+    for li in range(1, nlev):
+        v = prolong_level(v, hier.levels[li])
+        is_finest = li == nlev - 1
+        if is_finest and mode == "tol":
+            break
+        f = hier.levels[li].b
+        for c in range(spec.mu0):
+            if collect_debug and is_finest and c == spec.mu0 - 1:
+                v, debug = vcycle(hier, spec, li, v, f, collect_debug=True)
+            else:
+                v = vcycle(hier, spec, li, v, f)
+    return v, debug
+
+
 def fmg_solve(hier: Hierarchy, spec: CycleSpec, mode: str = "tol",
               collect_debug: bool = False):
     """Full Multigrid from the coarsest level up.  mode='tol' runs mu0
@@ -125,32 +150,17 @@ def fmg_solve(hier: Hierarchy, spec: CycleSpec, mode: str = "tol",
     finest (collect_debug then also returns the finest cycle's internals)."""
     if mode not in ("tol", "fixed"):
         raise ValueError(f"mode must be 'tol' or 'fixed', got {mode!r}")
-    check_slice(spec, hier.finest.b.ndim)
-    nlev = hier.num_levels
-    v = hier.coarse.solve(hier.levels[0].b)
-    debug = None
-    if nlev == 1:
+    check_slice(spec)
+    v, debug = fmg_ramp(hier, spec, mode, collect_debug)
+    if hier.num_levels == 1:
         nan = torch.full((spec.max_cycles,), float("nan"), dtype=v.dtype,
                          device=v.device)
         res = SolveResult(u=v, res_hist=nan, err_hist=nan.clone(),
                           num_cycles=0, converged=True, diverged=False)
         return (res, debug) if collect_debug else res
-
-    for li in range(1, nlev):
-        v = prolong_level(v, hier.levels[li])
-        f = hier.levels[li].b
-        is_finest = li == nlev - 1
-        if not is_finest or mode == "fixed":
-            for c in range(spec.mu0):
-                want = collect_debug and is_finest and c == spec.mu0 - 1
-                out = vcycle(hier, spec, li, v, f, collect_debug=want)
-                if want:
-                    v, debug = out
-                else:
-                    v = out
-        else:
-            result = tolerance_solve(hier, spec, v, f)
-            return (result, debug) if collect_debug else result
+    if mode == "tol":
+        result = tolerance_solve(hier, spec, v, hier.finest.b)
+        return (result, debug) if collect_debug else result
 
     # fixed mode: final norms once, for telemetry
     f = hier.finest.b
@@ -171,7 +181,7 @@ def fmg_solve(hier: Hierarchy, spec: CycleSpec, mode: str = "tol",
 
 def resume_solve(hier: Hierarchy, spec: CycleSpec, v0) -> SolveResult:
     """Continue V-cycling from a previous iterate until tolerance."""
-    check_slice(spec, hier.finest.b.ndim)
+    check_slice(spec)
     b = hier.finest.b
     v0 = torch.as_tensor(v0, dtype=b.dtype, device=b.device)
     return tolerance_solve(hier, spec, v0, b)

@@ -5,7 +5,8 @@ Mirrors `multigrid_dolfinx_tpu.solver.hierarchy` for the P1 const path in
 tiny assembled prototype, `build_hierarchy` assembles every level on the
 host (the reference's rediscretisation) and ships it.  Frozen
 dataclasses take the place of the JAX pytrees; every tensor lives on the
-device given to the build function.  Storage is the logical (n+1)^d box,
+device given to the build function, the CUDA card unless the caller asks
+for the CPU.  Storage is the logical (n+1)^d box,
 contiguous and unpadded, so there is no TPU tile padding, no cropped
 layout and no precomputed full-layout reference norm.
 """
@@ -125,14 +126,15 @@ def const_level(offsets, weights, grid, b: torch.Tensor, g: torch.Tensor,
                 dinv: Optional[torch.Tensor] = None) -> Level:
     """A level with a plane-free const operator of these weights; lmax
     defaults to the exact Dirichlet value (2.0 if the stencil has
-    diagonal couplings)."""
+    diagonal couplings), the Chebyshev degree is the config's."""
     if lmax is None:
         lmax = const_lmax_dirichlet(offsets, weights, grid.n)
     A = StencilOperator(
         offsets=tuple(map(tuple, offsets)), logical_m=grid.points_per_dim,
         grid_shape=grid.shape, const_weights=tuple(map(float, weights)))
     sm = SmootherData(lmax=2.0 if lmax is None else lmax,
-                      omega=config.cycle.omega, dinv=dinv)
+                      omega=config.cycle.omega, dinv=dinv,
+                      cheby_degree=config.cycle.cheby_degree)
     return Level(A=A, sm=sm, b=b, g=g, n=grid.n, level=grid.level)
 
 
@@ -155,8 +157,10 @@ def _finish(config: SolverConfig, levels, asm0, grids, dtype,
     )
 
 
-def build_lean_hierarchy(config: SolverConfig, device) -> Hierarchy:
-    """Scale-mode hierarchy for constant-coefficient P1 on `device`.
+def build_lean_hierarchy(config: SolverConfig,
+                         device="cuda") -> Hierarchy:
+    """Scale-mode hierarchy for constant-coefficient P1 on `device` (the
+    CUDA card by default; without one this raises).
 
     Levels carry plane-free const operators (weights as Python floats,
     interior masks from index arithmetic) and b, g built on the device
@@ -183,14 +187,22 @@ def build_lean_hierarchy(config: SolverConfig, device) -> Hierarchy:
     return _finish(config, levels, asm0, grids, dtype, device)
 
 
-def build_hierarchy(config: SolverConfig, device) -> Hierarchy:
+def build_hierarchy(config: SolverConfig, device="cuda") -> Hierarchy:
     """Assembled hierarchy: every level assembled on the host with
     dolfinx's Dirichlet semantics (the reference's per-level
-    rediscretisation) and shipped to `device`, with b, g and the Jacobi
-    dinv = 1/diag A stored per level.  The operators are detected as
-    constant stencils and run plane-free, as the JAX package does; the
-    reference's exact run, models.poisson2d(), builds this way."""
+    rediscretisation) and shipped to `device` (the CUDA card by default),
+    with b, g and the Jacobi dinv = 1/diag A stored per level.  The
+    operators are detected as constant stencils and run plane-free, as the
+    JAX package does; the reference's exact run, models.poisson2d(),
+    builds this way."""
     check_problem(config)
+    if config.cycle.smoother == "chebyshev":
+        # the JAX assembled build estimates lmax by power iteration; the
+        # exact Dirichlet lmax stored here would give another window
+        raise NotImplementedError(
+            "smoother 'chebyshev' on the assembled build needs the "
+            "power-iteration lmax (hierarchy.py estimate_lmax_dinv_a), "
+            "ROADMAP.md queue 1, item 19")
     device = resolve_device(device)
     dtype = DTYPES[config.dtype]
     grids = build_grid_hierarchy(config.hierarchy, ndim=config.problem.ndim)

@@ -20,7 +20,10 @@ It imports nothing of JAX; the caller does the jax -> numpy step, e.g.
     }
 
 with `dinv` the stored 1/diag A of an assembled hierarchy (None for a
-lean one, whose const operator gives it).
+lean one, whose const operator gives it).  The Chebyshev degree is the
+config's and the window ratio 4.0 in both packages, so a JAX lean
+Chebyshev hierarchy carried across this way with its lmax gives the same
+Chebyshev window, hence the same solve.
 """
 from __future__ import annotations
 
@@ -37,8 +40,9 @@ from ..solver.hierarchy import (DTYPES, Hierarchy, check_problem, const_level,
 
 
 def hierarchy_from_numpy(arrays: dict, config: SolverConfig,
-                         device) -> Hierarchy:
-    """The port's Hierarchy on `device` from numpy state (see module doc)."""
+                         device="cuda") -> Hierarchy:
+    """The port's Hierarchy on `device` (the CUDA card by default) from
+    numpy state (see module doc)."""
     check_problem(config)
     device = resolve_device(device)
     dtype = DTYPES[config.dtype]

@@ -425,7 +425,6 @@ def test_non_const5_operator_raises():
 
 
 @pytest.mark.parametrize("cycle,match", [
-    (dict(smoother="chebyshev"), "item 13"),
     (dict(cycle="W"), "item 8"),
     (dict(restriction="full_weighting"), "item 5"),
     (dict(prolongation="p1"), "item 5"),
