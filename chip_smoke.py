@@ -48,14 +48,38 @@ Phases (each prints one line; any failure exits nonzero with no result):
      version (the per-level plain K1-K3 sequence) in f32 and f64 on the
      tails of the 512^3 hierarchy (tops 17, 33, 65), bitwise; kernel /
      plain times on the 65^3-topped tail; and the V-cycle rooted at 65^3
-     and 129^3 with and without the tail.
-Each main path (5, 7, 9 and each run of 12) sets the launch counts to 0
-just before it runs and reads them just after.  Each kernel's record
+     and 129^3 with and without the tail;
+ 14. the stored-planes kernels K15-K17 (residual, Jacobi, multicolour GS)
+     against their plain versions in f32 and f64 at lm in PLANES_LMS on
+     random planes with the 15 Kuhn, 27 Galerkin, 7 axis and 25 radius-2
+     offsets, and K18 (P^T of a given residual) at lm -> (lm+1)/2, all
+     bitwise; kernel / plain times at 385^3 f32 (15 offsets; K18 to
+     193^3); and the Galerkin planes of a 129^3 variable-kappa hierarchy
+     against the CPU's f64 build: each RAP step on the card in f32 within
+     1e-6 (TF32 would miss it by ~1e-3), the card's whole f32 build within
+     1e-6 per RAP step below the finest;
+ 15. the variable-kappa slice at 64^3 f32 (Galerkin, V(2,2), rbgs and
+     jacobi): the hierarchy built on the CPU and carried to the card
+     solves with res_hist bitwise the CPU's, the card-built one in the
+     same number of cycles;
+ 16. scripts/bench_var_scale.py's configuration at 384^3 f32 (kappa = 1 +
+     x + 2y + z, 5 levels 25^3 to 385^3, Galerkin, V(2,2) multicolour GS,
+     P^T, FMG + tolerance solve to rtol 1e-6): build and coarse-factor
+     seconds, cycles, 10 V-cycles timed, launches, peak memory and
+     u(1/2,1/2,1/2); K15-K18 and K3 on every level of that hierarchy (its
+     own planes and b, lm 385 ... 25) and of the f64 one, bitwise against
+     their plain versions; a Jacobi tolerance solve on the same
+     hierarchy; a witness, the f64 solve on the f32 build's operator
+     (planes, b and g cast up), whose u the f32 run must meet within 1e-4
+     everywhere; the same configuration in f64, whose u(1/2,1/2,1/2) the
+     witness must meet within 1.2e-3 (f32 rounding of the operator).
+Each main path (5, 7, 9, each run of 12 and of 16) sets the launch counts
+to 0 just before it runs and reads them just after.  Each kernel's record
 carries its time, its plain version's, the time of one PyTorch call that
 computes the same function where there is one (library_ms, else null;
 never called by the port) and its bound: the larger of the bytes it must
 move over 3.35 TB/s and its f32 operations over 67 TFLOP/s (H100 SXM).
-The second-to-last line is the kernels' JSON record (K1-K14, each with
+The second-to-last line is the kernels' JSON record (K1-K18, each with
 the launches of the main path that runs it), the last line {"ok": true,
 "device": {...}}.  nvcc's report and the full record go to --out (default
 build/chip_smoke/, under the checkout).  Imports nothing of JAX.
@@ -98,6 +122,10 @@ TPU_KERNELS = {
     "cheby_step": "multigrid_dolfinx_tpu/ops/pallas/stencil3d_cheby.py:170",
     "tail_down": "multigrid_dolfinx_tpu/ops/pallas/stencil3d_tail.py:214",
     "tail_up": "multigrid_dolfinx_tpu/ops/pallas/stencil3d_tail.py:239",
+    "planes3_residual": "multigrid_dolfinx_tpu/ops/pallas/stencil3d.py:1511",
+    "planes3_jacobi_sweep": "multigrid_dolfinx_tpu/ops/pallas/stencil3d.py:1499",
+    "planes3_gs_sweep": "multigrid_dolfinx_tpu/ops/pallas/stencil3d.py:1479",
+    "restrict_pt": "multigrid_dolfinx_tpu/ops/pallas/stencil3d.py:903",
 }
 KERNELS_3D = ("rb_sweep", "restrict_residual_pt", "prolong_linear_add",
               "prolong_linear", "residual_tet_quad")
@@ -107,6 +135,16 @@ KERNELS_2D = ("rb_sweep_2d", "residual_2d", "restrict_pt_2d",
               "prolong_linear_2d")
 KERNELS_SLICE3 = ("residual", "jacobi_sweep", "cheby_step")
 KERNELS_TAIL = ("tail_down", "tail_up")
+KERNELS_PLANES = ("planes3_residual", "planes3_jacobi_sweep",
+                  "planes3_gs_sweep", "restrict_pt")
+PLANES_LMS = (9, 17, 65, 129, 257, 385)
+TIMED_LM_VAR = 385        # the 384^3 variable-kappa finest level
+AXIS7 = ((-1, 0, 0), (0, -1, 0), (0, 0, -1), (0, 0, 0), (0, 0, 1),
+         (0, 1, 0), (1, 0, 0))
+BOX27 = tuple((a, b, c) for a in (-1, 0, 1) for b in (-1, 0, 1)
+              for c in (-1, 0, 1))
+RADIUS2 = tuple((a, b, c) for a in range(-2, 3) for b in range(-2, 3)
+                for c in range(-2, 3) if abs(a) + abs(b) + abs(c) <= 2)
 # the tails of the 512^3 hierarchy's V-cycles (coarsest first): below the
 # 33^3, 65^3 and 129^3 levels
 TAIL_CHAINS = ((9, 17), (9, 17, 33), (9, 17, 33, 65))
@@ -124,6 +162,9 @@ SOURCES = {
     "cheby_step": "multigrid_dolfinx_tpu_torch/csrc/stencil3d_cheby.cu",
     "tail_down": "multigrid_dolfinx_tpu_torch/csrc/stencil3d_tail.cu",
     "tail_up": "multigrid_dolfinx_tpu_torch/csrc/stencil3d_tail.cu",
+    **{k: "multigrid_dolfinx_tpu_torch/csrc/stencil3d_planes.cu"
+       for k in KERNELS_PLANES[:3]},
+    "restrict_pt": "multigrid_dolfinx_tpu_torch/csrc/stencil3d.cu",
 }
 # H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s and f32 FLOP/s
 # outside the tensor cores.
@@ -132,8 +173,12 @@ PEAK_F32_S = 67e12
 # f32 operations per fine point (per coarse point for the '_c' entries),
 # counted from each kernel's arithmetic in csrc/: the neighbour sum is 5
 # adds in 3D and 3 in 2D, the const-7 residual 9, the [1 2 1] restriction
-# 40 per 3D coarse point and 13 per 2D one, the per-tet norm 54 per cell.
+# 40 per 3D coarse point and 13 per 2D one, the per-tet norm 54 per cell;
+# the planes kernels at K = 15: a multiply and an add per offset, plus 1
+# (residual), 6 (Jacobi, with the division) or 4 (GS).
 OPS = {"rb_sweep": 8, "restrict_residual_pt": 9, "restrict_residual_pt_c": 40,
+       "planes3_residual": 31, "planes3_jacobi_sweep": 34,
+       "planes3_gs_sweep": 34, "restrict_pt": 0, "restrict_pt_c": 40,
        "prolong_linear": 3, "prolong_linear_add": 4, "residual_tet_quad": 63,
        "jacobi_sweep_2d": 8, "rb_sweep_2d": 5, "residual_2d": 6,
        "restrict_pt_2d": 0, "restrict_pt_2d_c": 13, "prolong_linear_2d": 2,
@@ -144,7 +189,9 @@ ARRAYS = {"rb_sweep": (3, 0), "restrict_residual_pt": (2, 1),
           "residual_tet_quad": (2, 0), "jacobi_sweep_2d": (3, 0),
           "rb_sweep_2d": (3, 0), "residual_2d": (3, 0),
           "restrict_pt_2d": (1, 1), "prolong_linear_2d": (1, 1),
-          "residual": (3, 0), "jacobi_sweep": (3, 0), "cheby_step": (4, 0)}
+          "residual": (3, 0), "jacobi_sweep": (3, 0), "cheby_step": (4, 0),
+          "planes3_residual": (18, 0), "planes3_jacobi_sweep": (18, 0),
+          "planes3_gs_sweep": (18, 0), "restrict_pt": (1, 1)}
 RTOL_64 = {"C": 1e-7, "G1": 1e-6}     # above the f32 floor at 64^3
 # K1-K3 and K5-K9 must agree to 1e-6 of the reference's magnitude (bitwise is
 # expected: same association order, kernels built with --fmad=false); K4
@@ -1045,6 +1092,434 @@ def phase_tail(torch, np, mg, records):
             "max_abs_err": {k: err[k] for k in KERNELS_TAIL}}
 
 
+def var_kappa(x, y, z):
+    """kappa = 1 + x + 2y + z, scripts/bench_var_scale.py's coefficient."""
+    return 1.0 + x + 2.0 * y + z
+
+
+def planes_sets(mg):
+    from multigrid_dolfinx_tpu_torch.fem.fast_var import structural_offsets
+
+    return {"kuhn15": structural_offsets(3, "right"), "box27": BOX27,
+            "axis7": AXIS7, "radius2": RADIUS2}
+
+
+def random_planes(torch, gen, offs, lm, dtype):
+    """Random planes on the card with a dominant centre plane (one GS
+    sweep stays bounded), and random v and f."""
+    dev = torch.device("cuda")
+    planes = torch.randn((len(offs),) + (lm,) * 3, generator=gen,
+                         device=dev, dtype=dtype)
+    c = offs.index((0, 0, 0))
+    planes[c].abs_().add_(float(len(offs)))
+    v, f = (torch.randn((lm,) * 3, generator=gen, device=dev, dtype=dtype)
+            for _ in range(2))
+    return planes, v, f
+
+
+def phase_planes_kernels(torch, np, mg, records):
+    """K15-K18 against their plain versions on the card, bitwise, then
+    kernel / plain / library times at 385^3 f32 and the card-built
+    Galerkin planes against the CPU's f64 build."""
+    from multigrid_dolfinx_tpu_torch.ops import cuda as kcuda
+    from multigrid_dolfinx_tpu_torch.ops.cuda import stencil3d as s3
+    from multigrid_dolfinx_tpu_torch.ops.cuda import stencil3d_planes as sp
+
+    sets = planes_sets(mg)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    w = 2.0 / 3.0
+    err = {}
+    kcuda.reset_launch_counts()
+    for dtype in (torch.float32, torch.float64):
+        for lm in PLANES_LMS:
+            parts = []
+            for name, offs in sets.items():
+                planes, v, f = random_planes(torch, gen, offs, lm, dtype)
+                cases = [
+                    ("planes3_residual", sp.planes3_residual(v, f, planes, offs),
+                     sp.planes3_residual_ref(v, f, planes, offs)),
+                    ("planes3_jacobi_sweep",
+                     sp.planes3_jacobi_sweep(v, f, planes, offs, w),
+                     sp.planes3_jacobi_sweep_ref(v, f, planes, offs, w)),
+                    ("planes3_gs_sweep",
+                     sp.planes3_gs_sweep(v.clone(), f, planes, offs),
+                     sp.planes3_gs_sweep_ref(v.clone(), f, planes, offs)),
+                ]
+                torch.cuda.synchronize()
+                for kname, out, ref in cases:
+                    check_close(kname, out, ref, 0.0, err, parts,
+                                f"lm={lm} {name} {dtype}")
+                    if not bool(torch.isfinite(out).all()):
+                        raise AssertionError(f"{kname} at lm={lm} {name}: "
+                                             "non-finite output")
+                parts[-3:] = [f"{name}:" + ",".join(
+                    q.split("=")[1] for q in parts[-3:])]
+                del planes, v, f, cases
+            lmc = (lm + 1) // 2
+            r = torch.randn((lm,) * 3, generator=gen, device="cuda",
+                            dtype=dtype)
+            check_close("restrict_pt", s3.restrict_pt(r, lm, lmc),
+                        s3.restrict_pt_ref(r, lm, lmc), 0.0, err, parts,
+                        f"lm={lm} {dtype}")
+            del r
+            print(f"phase 14 lm={lm} {str(dtype)[6:]}: max|kernel-plain| "
+                  "(residual,jacobi,gs) " + " ".join(parts))
+            torch.cuda.empty_cache()
+    counts = kcuda.launch_counts()
+    missing = [k for k in KERNELS_PLANES if counts.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"launch counters did not move: {missing}")
+
+    lm, lmc = TIMED_LM_VAR, (TIMED_LM_VAR + 1) // 2
+    offs = sets["kuhn15"]
+    planes, v, f = random_planes(torch, gen, offs, lm, torch.float32)
+    out = torch.empty_like(v)
+    vg, vr = v.clone(), v.clone()       # K17 and its plain version in place
+    pairs = {
+        "planes3_residual": (
+            lambda: sp.planes3_residual(v, f, planes, offs),
+            lambda: sp.planes3_residual_ref(v, f, planes, offs)),
+        "planes3_jacobi_sweep": (
+            lambda: sp.planes3_jacobi_sweep(v, f, planes, offs, w, out),
+            lambda: sp.planes3_jacobi_sweep_ref(v, f, planes, offs, w)),
+        "planes3_gs_sweep": (
+            lambda: sp.planes3_gs_sweep(vg, f, planes, offs),
+            lambda: sp.planes3_gs_sweep_ref(vr, f, planes, offs)),
+        "restrict_pt": (lambda: s3.restrict_pt(v, lm, lmc),
+                        lambda: s3.restrict_pt_ref(v, lm, lmc)),
+    }
+    F = torch.nn.functional
+    w121 = torch.tensor([1.0, 2.0, 1.0], device="cuda")
+    kern_pt = (0.125 * w121[:, None, None] * w121[None, :, None]
+               * w121[None, None, :])[None, None]
+    library = {"restrict_pt": no_tf32(torch, lambda: F.conv3d(
+        v[None, None], kern_pt, stride=2, padding=1))}
+    shape = {k: (lm ** 3, lmc ** 3 if k == "restrict_pt" else 0)
+             for k in pairs}
+    time_pairs(torch, pairs, err, records, f"phase 14 time at lm={lm} f32",
+               shape, library)
+    del planes, v, f, out, vg, vr
+    torch.cuda.empty_cache()
+    return {"max_abs_err": {k: err[k] for k in KERNELS_PLANES},
+            "galerkin_planes": galerkin_tf32_check(torch, np, mg)}
+
+
+def galerkin_tf32_check(torch, np, mg):
+    """The Galerkin planes of a 129^3 variable-kappa hierarchy (5 levels)
+    against the CPU's f64 build, as max|card - cpu| over max|cpu| per
+    level.  Each RAP step on the card in f32, fed the CPU's f64 planes of
+    the level above rounded to f32, within 1e-6 (a TF32 convolution misses
+    by ~1e-3); the hierarchy built on the card in f32 throughout within
+    1e-6 per RAP step below the finest (f32 rounding adds up over the
+    steps: 4e-6 at 9^3)."""
+    from multigrid_dolfinx_tpu_torch.fem import fast_var
+
+    cyc = cycle_spec(mg, 1e-6)
+    hs = {}
+    for dev, dtype in (("cuda", "float32"), ("cpu", "float64")):
+        cfg = mg.models.variable_coefficient_3d(
+            var_kappa, finest_level=4, coarsest_level=0, coarsest_elements=8,
+            dtype=dtype, cycle=cyc)
+        hs[dev] = mg.build_var_hierarchy(cfg, device=dev)
+    cpu = hs["cpu"].levels
+    step, built, limit = {}, {}, {}
+    for l, lc in enumerate(cpu):
+        limit[lc.n + 1] = 1e-6 * max(1, len(cpu) - 1 - l)
+        ref = lc.A.planes
+        scale = ref.abs().max()
+        built[lc.n + 1] = float((hs["cuda"].levels[l].A.planes.cpu().double()
+                                 - ref).abs().max() / scale)
+        if l + 1 < len(cpu):
+            fine = cpu[l + 1]
+            offs, rap = fast_var.galerkin_rap_device(
+                fine.A.offsets, fine.A.planes.float().cuda(), fine.n + 1)
+            rap = fast_var.eliminate_dirichlet_device(offs, rap, lc.n + 1)
+            step[lc.n + 1] = float((rap.cpu().double() - ref).abs().max()
+                                   / scale)
+    print("phase 14 Galerkin planes vs the cpu's f64, max rel diff by lm: "
+          "one f32 RAP step on the card " + ", ".join(
+              f"{k}: {e:.3e}" for k, e in step.items())
+          + "; the card's f32 build " + ", ".join(
+              f"{k}: {e:.3e}" for k, e in built.items()))
+    bad = ({k: e for k, e in step.items() if not e <= 1e-6},
+           {k: e for k, e in built.items() if not e <= limit[k]})
+    if bad[0] or bad[1]:
+        raise AssertionError(f"card-built Galerkin planes differ: {bad}")
+    return {"rap_step_f32": step, "build_f32": built}
+
+
+def var_state(hier):
+    """A port hierarchy's state as numpy (utils.convert's format)."""
+    return {
+        "levels": [{"b": lv.b.cpu().numpy(), "g": lv.g.cpu().numpy(),
+                    "n": lv.n, "offsets": lv.A.offsets,
+                    "planes": lv.A.planes.cpu().numpy(), "lmax": lv.sm.lmax}
+                   for lv in hier.levels],
+        "coarse": {"factor": hier.coarse.factor.cpu().numpy(), "piv": None,
+                   "kind": hier.coarse.kind},
+        "class_tables": hier.M_fine.class_tables.cpu().numpy(),
+        "uniform_p1_mass": hier.M_fine.uniform_p1_mass,
+    }
+
+
+def phase_small_var(torch, np, mg):
+    """The variable-kappa slice at 64^3 f32, Galerkin, V(2,2), rbgs and
+    jacobi, rtol 1e-6: the CPU-built hierarchy carried to the card solves
+    bitwise as on the CPU (the kernels are bitwise their plain versions,
+    the coarse factor is f64 and the norm's sum is taken in f64); the
+    card-built hierarchy takes the same number of cycles."""
+    torch.set_num_threads(8)
+    out = {}
+    for smoother in ("rbgs", "jacobi"):
+        cyc = mg.CycleSpec(nu1=2, nu2=2, smoother=smoother, restriction="pt",
+                           tol=0.0, rtol=1e-6, max_cycles=60,
+                           track_error=False)
+        cfg = mg.models.variable_coefficient_3d(
+            var_kappa, finest_level=3, coarsest_level=0, coarsest_elements=8,
+            dtype="float32", cycle=cyc)
+        h_cpu = mg.build_var_hierarchy(cfg, device="cpu")
+        cpu = mg.solve(h_cpu, cyc)
+        carried = mg.solve(mg.hierarchy_from_numpy(var_state(h_cpu), cfg),
+                           cyc)
+        built = mg.solve(mg.build_var_hierarchy(cfg), cyc)
+        k = cpu.num_cycles
+        hc = cpu.res_hist[:k].numpy()
+        hg = carried.res_hist[:carried.num_cycles].cpu().numpy()
+        hb = built.res_hist[:built.num_cycles].cpu().numpy()
+        print(f"phase 15 64^3 f32 var kappa {smoother}: cpu {k} cycles "
+              f"{hc.tolist()}; carried to the card {carried.num_cycles} "
+              f"{hg.tolist()}; card-built {built.num_cycles} {hb.tolist()}")
+        if not (cpu.converged and carried.converged and built.converged):
+            raise AssertionError(f"64^3 var {smoother} did not converge")
+        if carried.num_cycles != k or not np.array_equal(hg, hc):
+            raise AssertionError(f"64^3 var {smoother}: card res_hist is not "
+                                 "bitwise the CPU's")
+        if not torch.equal(carried.u.cpu(), cpu.u):
+            raise AssertionError(f"64^3 var {smoother}: u differs")
+        if built.num_cycles != k:
+            raise AssertionError(f"64^3 var {smoother}: card-built took "
+                                 f"{built.num_cycles} cycles, cpu {k}")
+        out[smoother] = {"cycles": k, "res_hist": hc.tolist(),
+                         "card_built_res_hist": hb.tolist()}
+    return out
+
+
+def var_config(mg, dtype, smoother="rbgs"):
+    """scripts/bench_var_scale.py's configuration at 384^3."""
+    from multigrid_dolfinx_tpu_torch.mesh import factor_levels
+
+    base, finest = factor_levels(384)
+    cyc = mg.CycleSpec(nu1=2, nu2=2, smoother=smoother, restriction="pt",
+                       tol=0.0, rtol=1e-6, max_cycles=40, track_error=False)
+    return mg.models.variable_coefficient_3d(
+        var_kappa, finest_level=finest, coarsest_level=max(0, finest - 4),
+        coarsest_elements=base, dtype=dtype, cycle=cyc), cyc
+
+
+def run_var(torch, mg, dtype, label, hier=None, smoother="rbgs"):
+    """Build (unless given) and solve the 384^3 configuration, the launch
+    counts set to 0 just before and read just after; the coarse factor's
+    seconds measured inside the build."""
+    from multigrid_dolfinx_tpu_torch.ops import cuda as kcuda
+    from multigrid_dolfinx_tpu_torch.solver import hierarchy as hmod
+
+    cfg, cyc = var_config(mg, dtype, smoother)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kcuda.reset_launch_counts()
+    factor_s = [0.0]
+    build_coarse = hmod.build_coarse_solver
+
+    def timed_coarse(*a, **kw):
+        t = time.perf_counter()
+        c = build_coarse(*a, **kw)
+        factor_s[0] += time.perf_counter() - t
+        return c
+
+    t0 = time.perf_counter()
+    if hier is None:
+        hmod.build_coarse_solver = timed_coarse
+        try:
+            hier = mg.build_var_hierarchy(cfg)
+        finally:
+            hmod.build_coarse_solver = build_coarse
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    res = mg.solve(hier, cyc)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = kcuda.launch_counts()
+    mid = hier.finest.n // 2
+    run = {"build_s": t1 - t0, "coarse_factor_s": factor_s[0],
+           "solve_s": t2 - t1, "cycles": res.num_cycles,
+           "converged": res.converged,
+           "res_hist": res.res_hist[:res.num_cycles].double().cpu()
+           .numpy().tolist(),
+           "u_mid": float(res.u[mid, mid, mid]),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "levels": [lv.n + 1 for lv in hier.levels],
+           "launches": {n: c for n, c in counts.items() if c}}
+    print(f"phase 16 384^3 {dtype} {label}: levels {run['levels']}, build "
+          f"{run['build_s']:.3f} s (coarse factor {run['coarse_factor_s']:.3f}"
+          f" s), solve {run['solve_s']:.3f} s, {res.num_cycles} cycles after "
+          f"FMG, converged={res.converged} diverged={res.diverged}, res_hist "
+          f"{run['res_hist']}, u(1/2,1/2,1/2)={run['u_mid']!r}, peak "
+          f"{run['peak_gb']:.2f} GB, launches {run['launches']}")
+    if not res.converged or res.diverged or not math.isfinite(run["u_mid"]):
+        raise AssertionError(f"384^3 {dtype} {label} did not converge")
+    return hier, res, counts, run
+
+
+def check_levels(torch, hier, err, label):
+    """The kernels of the var path at the shapes it gives them: on every
+    level of `hier`, K15, K16 and K17 with the level's own planes and b
+    and a random v, K18 of K15's residual to the level below and K3 from
+    a random coarse field, each bitwise against its plain version."""
+    from multigrid_dolfinx_tpu_torch.ops.cuda import stencil3d as s3
+    from multigrid_dolfinx_tpu_torch.ops.cuda import stencil3d_planes as sp
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    for li, lv in enumerate(hier.levels):
+        A, f, lm = lv.A, lv.b, lv.n + 1
+        v = torch.randn(f.shape, generator=gen, device="cuda", dtype=f.dtype)
+        r = sp.planes3_residual(v, f, A.planes, A.offsets)
+        cases = [
+            ("planes3_residual", r,
+             sp.planes3_residual_ref(v, f, A.planes, A.offsets)),
+            ("planes3_jacobi_sweep",
+             sp.planes3_jacobi_sweep(v, f, A.planes, A.offsets, lv.sm.omega),
+             sp.planes3_jacobi_sweep_ref(v, f, A.planes, A.offsets,
+                                         lv.sm.omega)),
+            ("planes3_gs_sweep",
+             sp.planes3_gs_sweep(v.clone(), f, A.planes, A.offsets),
+             sp.planes3_gs_sweep_ref(v.clone(), f, A.planes, A.offsets)),
+        ]
+        if li > 0:
+            lmc = hier.levels[li - 1].n + 1
+            c = torch.randn((lmc,) * 3, generator=gen, device="cuda",
+                            dtype=f.dtype)
+            cases += [
+                ("restrict_pt", s3.restrict_pt(r, lm, lmc),
+                 s3.restrict_pt_ref(r, lm, lmc)),
+                ("prolong_linear", s3.prolong_linear(c, lm),
+                 s3.prolong_linear_ref(c, lm)),
+                ("prolong_linear_add", s3.prolong_linear(c, lm, v),
+                 s3.prolong_linear_ref(c, lm, v)),
+            ]
+        torch.cuda.synchronize()
+        parts = []
+        for name, out, ref in cases:
+            check_close(name, out, ref, 0.0, err, parts, f"{label} lm={lm}")
+        print(f"phase 16 {label} level lm={lm} ({len(A.offsets)} planes): "
+              "max|kernel-plain| " + " ".join(parts))
+        del v, r, cases
+        torch.cuda.empty_cache()
+
+
+def more_cycles(mg, hier, cyc, u):
+    """u(1/2,1/2,1/2) after 6 more V-cycles from u: where the iteration
+    settles in the hierarchy's dtype."""
+    more = mg.resume_solve(hier, dataclasses.replace(cyc, rtol=0.0,
+                                                     max_cycles=6), u)
+    mid = hier.finest.n // 2
+    return float(more.u[mid, mid, mid])
+
+
+def phase_var(torch, np, mg, card, records):
+    """bench_var_scale.py's configuration at 384^3: f32 red-black (the
+    slice's main path: launches, 10 timed V-cycles), the path's kernels on
+    each level against their plain versions, a Jacobi solve on the same
+    hierarchy (K16 at full size), the f64 witness on the f32 build's
+    operator, then f64 for the discrete solution."""
+    err = {}
+    hier, res, counts, out = run_var(torch, mg, "float32", "V(2,2) rbgs")
+    _, cyc = var_config(mg, "float32")
+    ms, rooted = time_vcycles(torch, mg, hier, cyc, res.u)
+    dofs = (hier.finest.n + 1) ** 3
+    from multigrid_dolfinx_tpu_torch.solver.fmg import check_norm
+
+    check = time_ms(torch, lambda: check_norm(hier, res.u, hier.finest.b),
+                    reps=3, warmup=1)
+    out.update(ms_per_vcycle=ms, dof_per_s=dofs / (ms * 1e-3),
+               ms_per_vcycle_rooted_at_lm=rooted, check_ms=check)
+    print(f"phase 16 V-cycle f32: {ms:.4f} ms/V-cycle, "
+          f"{dofs / (ms * 1e-3):.4e} DOF/s at {dofs} DOFs on [{card}]; "
+          f"check {check:.4f} ms; rooted at lm (ms): " + ", ".join(
+              f"{k}: {t:.4f}" for k, t in rooted.items()))
+    missing = [k for k in ("planes3_residual", "planes3_gs_sweep",
+                           "restrict_pt", "prolong_linear_add",
+                           "prolong_linear") if counts.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"384^3 var path did not launch {missing}")
+    u32 = res.u
+    out["u_mid_6_more_cycles"] = more_cycles(mg, hier, cyc, u32)
+    del res
+    check_levels(torch, hier, err, "f32")
+
+    _, res_j, counts_j, out["jacobi"] = run_var(
+        torch, mg, "float32", "V(2,2) jacobi", hier=hier, smoother="jacobi")
+    if counts_j.get("planes3_jacobi_sweep", 0) == 0:
+        raise AssertionError("384^3 jacobi run did not launch K16")
+    del res_j
+
+    # the witness: f64 arithmetic on the f32 build's planes, b and g (cast
+    # up exactly) and its coarse factor; where its u lands says whether
+    # the f32 operator or the f32 cycle moves u away from the f64 run's
+    cfg64, cyc64 = var_config(mg, "float64")
+    hw = mg.hierarchy_from_numpy(var_state(hier), cfg64)
+    del hier
+    res_w = mg.solve(hw, cyc64)
+    mid = hw.finest.n // 2
+    out["witness"] = {"cycles": res_w.num_cycles,
+                      "converged": res_w.converged,
+                      "u_mid": float(res_w.u[mid, mid, mid]),
+                      "u_mid_6_more_cycles": more_cycles(mg, hw, cyc64,
+                                                         res_w.u)}
+    if not res_w.converged or not math.isfinite(out["witness"]["u_mid"]):
+        raise AssertionError("384^3 f64 witness did not converge")
+    du_w = float((res_w.u - u32.double()).abs().max())
+    del hw, res_w
+    torch.cuda.empty_cache()
+
+    hier64, res64, _, out["f64"] = run_var(torch, mg, "float64",
+                                           "V(2,2) rbgs")
+    out["f64"]["u_mid_6_more_cycles"] = more_cycles(mg, hier64, cyc,
+                                                    res64.u)
+    check_levels(torch, hier64, err, "f64")
+    du = float((res64.u - u32.double()).abs().max())
+    d_mid = abs(out["u_mid"] - out["f64"]["u_mid"])
+    w = out["witness"]
+    out["max_abs_u_f32_minus_f64"] = du
+    out["max_abs_u_f32_minus_witness"] = du_w
+    print(f"phase 16 f32 vs f64: u(1/2,1/2,1/2) {out['u_mid']!r} vs "
+          f"{out['f64']['u_mid']!r} (|diff| {d_mid:.3e}); max|u_f32 - u_f64| "
+          f"{du:.3e}; after 6 more cycles {out['u_mid_6_more_cycles']!r} vs "
+          f"{out['f64']['u_mid_6_more_cycles']!r}")
+    print(f"phase 16 witness (f64 cycles on the f32 build's operator): "
+          f"{w['cycles']} cycles, u(1/2,1/2,1/2) {w['u_mid']!r} (|diff| to "
+          f"f32 {abs(w['u_mid'] - out['u_mid']):.3e}, to f64 "
+          f"{abs(w['u_mid'] - out['f64']['u_mid']):.3e}); after 6 more "
+          f"cycles {w['u_mid_6_more_cycles']!r}; max|u_f32 - u_witness| "
+          f"{du_w:.3e}")
+    # f32 u(1/2,1/2,1/2) misses the f64 run's by ~1.06e-3, and the witness
+    # says why: ~1.01e-3 of it is the f32 build's operator, ~5e-5 the f32
+    # cycle (NVIDIA H100, PERF.md).  Each share is held to its own limit.
+    d_op = abs(w["u_mid"] - out["f64"]["u_mid"])
+    if not (du_w <= 1e-4 and d_op <= 1.2e-3):
+        raise AssertionError(
+            f"f32 u vs the witness {du_w:.3e} (limit 1e-4), witness "
+            f"u(1/2,1/2,1/2) vs f64 {d_op:.3e} (limit 1.2e-3)")
+    del hier64, res64, u32
+    torch.cuda.empty_cache()
+    launches = {k: counts[k] for k in KERNELS_PLANES if k in counts}
+    launches["planes3_jacobi_sweep"] = counts_j["planes3_jacobi_sweep"]
+    for k, e in err.items():
+        records[k]["max_abs_err"] = max(records[k]["max_abs_err"], e)
+    out["levels_max_abs_err"] = err
+    return launches, out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=ROOT / "build" / "chip_smoke",
@@ -1096,6 +1571,12 @@ def main() -> int:
         counts_s3, slice3 = phase_slice3(torch, np, mg, card)
         phase = "13 fused coarse tail"
         tail = phase_tail(torch, np, mg, records)
+        phase = "14 kernels K15-K18"
+        planes = phase_planes_kernels(torch, np, mg, records)
+        phase = "15 var kappa at 64^3"
+        small_var = phase_small_var(torch, np, mg)
+        phase = "16 var kappa at 384^3"
+        counts_var, var = phase_var(torch, np, mg, card, records)
     except Exception:
         print(f"FAILED in phase {phase}:")
         traceback.print_exc(file=sys.stdout)
@@ -1105,11 +1586,12 @@ def main() -> int:
         rec["launches"] = (counts[k] if k in KERNELS_3D + KERNELS_TAIL else
                            counts_ref[k] if k == "jacobi_sweep_2d" else
                            counts_s3[k] if k in KERNELS_SLICE3 else
+                           counts_var[k] if k in KERNELS_PLANES else
                            counts_2d[k])
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "build_s": build_s, "main": main,
          "reference": reference, "main_2d": main_2d, "slice3": slice3,
-         "tail": tail,
+         "tail": tail, "planes": planes, "var_64": small_var, "var": var,
          "kernels": list(records.values())}, indent=1))
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -16,7 +16,11 @@ Its slices so far:
     degree-ν polynomial per phase, the fused momentum-form step in 3D),
     3D weighted Jacobi and 3D injection in the V-cycle, and flexible
     MG-preconditioned CG (solve_mgcg / mgcg_solve) from an FMG or a zero
-    start.
+    start;
+  * 3D variable-coefficient diffusion (BASELINE.json config 4's P1 half):
+    build_var_hierarchy builds stored coefficient planes on the device,
+    with rediscretised or Galerkin (P^T A P) coarse operators, smoothed by
+    multicolour Gauss-Seidel or weighted Jacobi on the planes.
 On a CUDA device the hot ops run as hand-written Hopper kernels
 (ops/cuda, sources in csrc/); on the CPU they run as the kernels' plain
 PyTorch versions.  This package never imports JAX.
@@ -38,7 +42,7 @@ Quick start::
 from .config import CycleSpec, HierarchySpec, ProblemSpec, SolverConfig
 from .mesh import GridLevel, build_grid_hierarchy
 from .solver.hierarchy import (Hierarchy, Level, build_hierarchy,
-                               build_lean_hierarchy)
+                               build_lean_hierarchy, build_var_hierarchy)
 from .solver.fmg import (SolveResult, error_norm, fmg_solve, residual_norm,
                          resume_solve, solve)
 from .solver.krylov import CGResult, mgcg_solve, solve_mgcg
@@ -59,6 +63,7 @@ __all__ = [
     "Level",
     "build_hierarchy",
     "build_lean_hierarchy",
+    "build_var_hierarchy",
     "SolveResult",
     "fmg_solve",
     "solve",

@@ -1,5 +1,5 @@
 // Const-7-point multigrid kernels for Hopper (sm_90a): K1-K3, K10 and
-// K11 of the port.
+// K11 of the port, and K18, the P^T restriction of a given residual.
 //
 // Storage is the logical lm^3 node box, C-order (z, y, x), contiguous and
 // unpadded.  Interior means 1 <= index <= lm-2 on every axis.  Every sum
@@ -128,6 +128,25 @@ __global__ void jacobi_kernel(const T* __restrict__ v,
     out[p] = keep * v[p] + w * cand;
 }
 
+// K18: the two-step variational P^T restriction of a given fine r,
+// replacing stencil3d.py restrict_pt (_restrict_kernel): r masked to the
+// fine interior, [1 2 1]^3 / 8 combined z, then y, then x, the coarse
+// boundary zeroed.  One thread per coarse point; the 27 fine values come
+// through L1/L2.  Bound: memory, r read once and the coarse array written
+// once.
+template <typename T>
+__global__ void restrict_pt_kernel(const T* __restrict__ r,
+                                   T* __restrict__ out, int lmf, int lmc) {
+    const long long n = (long long)lmc * lmc * lmc;
+    const long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (q >= n) return;
+    const int xc = (int)(q % lmc);
+    const int yc = (int)((q / lmc) % lmc);
+    const int zc = (int)(q / ((long long)lmc * lmc));
+    const mg3d::MaskedSample<T> sample{r, lmf};
+    out[q] = mg3d::restrict_combine<T>(sample, zc, yc, xc, lmc);
+}
+
 unsigned int blocks_for(long long n) {
     return (unsigned int)((n + kThreads - 1) / kThreads);
 }
@@ -151,6 +170,13 @@ int restrict_residual_pt(const T* v, const T* f, T* out, int lmf, int lmc,
     const unsigned int nb = blocks_for((long long)lmc * lmc * lmc);
     restrict_residual_pt_kernel<T><<<nb, kThreads, 0, stream>>>(
         v, f, out, lmf, lmc, wc, woff);
+    return (int)cudaGetLastError();
+}
+
+template <typename T>
+int restrict_pt(const T* r, T* out, int lmf, int lmc, cudaStream_t stream) {
+    const unsigned int nb = blocks_for((long long)lmc * lmc * lmc);
+    restrict_pt_kernel<T><<<nb, kThreads, 0, stream>>>(r, out, lmf, lmc);
     return (int)cudaGetLastError();
 }
 
@@ -232,6 +258,16 @@ int mg_restrict_residual_pt_f64(const double* v, const double* f,
                                 double woff, void* stream) {
     return restrict_residual_pt<double>(v, f, out, lmf, lmc, wc, woff,
                                         (cudaStream_t)stream);
+}
+
+int mg_restrict_pt_f32(const float* r, float* out, int lmf, int lmc,
+                       void* stream) {
+    return restrict_pt<float>(r, out, lmf, lmc, (cudaStream_t)stream);
+}
+
+int mg_restrict_pt_f64(const double* r, double* out, int lmf, int lmc,
+                       void* stream) {
+    return restrict_pt<double>(r, out, lmf, lmc, (cudaStream_t)stream);
 }
 
 // v may be NULL: then out = P(c).

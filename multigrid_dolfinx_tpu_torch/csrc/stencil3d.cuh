@@ -1,5 +1,5 @@
-// Device helpers shared by the const-7-point kernels (stencil3d.cu,
-// stencil3d_cheby.cu, stencil3d_tail.cu).
+// Device helpers shared by the kernels of stencil3d.cu,
+// stencil3d_cheby.cu, stencil3d_tail.cu and stencil3d_planes.cu.
 //
 // Storage is the logical lm^3 node box, C-order (z, y, x), contiguous and
 // unpadded.  Interior means 1 <= index <= lm-2 on every axis.
@@ -57,30 +57,62 @@ __device__ __forceinline__ T masked_residual(const T* __restrict__ v,
     return f[p] - av;
 }
 
-// Fused residual + variational P^T restriction at coarse point
-// (zc, yc, xc): 0.125 * [1 2 1]^3 applied to the masked fine residual
+// Variational P^T restriction at coarse point (zc, yc, xc) of the fine
+// values sample(z, y, x) (0 off the fine interior): 0.125 * [1 2 1]^3
 // around 2I, combined z first, then y, then x (the order of stencil3d.py
-// _restrict_residual_kernel and _plane_restrict); 0 outside the coarse
-// interior.  The 27 residuals are recomputed from v and f.
-template <typename T>
-__device__ __forceinline__ T restrict_point(const T* __restrict__ v,
-                                            const T* __restrict__ f, int zc,
-                                            int yc, int xc, int lmf, int lmc,
-                                            T wc, T woff) {
+// _restrict_residual_kernel, _restrict_kernel and _plane_restrict); 0
+// outside the coarse interior.
+template <typename T, typename Sample>
+__device__ __forceinline__ T restrict_combine(const Sample& sample, int zc,
+                                              int yc, int xc, int lmc) {
     if (!interior(zc, yc, xc, lmc)) return T(0);
     const int zf = 2 * zc, yf = 2 * yc, xf = 2 * xc;
     T gy[3];
     for (int dx = -1; dx <= 1; ++dx) {
         T gz[3];
         for (int dy = -1; dy <= 1; ++dy) {
-            const T lo = masked_residual(v, f, zf - 1, yf + dy, xf + dx, lmf, wc, woff);
-            const T mid = masked_residual(v, f, zf, yf + dy, xf + dx, lmf, wc, woff);
-            const T hi = masked_residual(v, f, zf + 1, yf + dy, xf + dx, lmf, wc, woff);
+            const T lo = sample(zf - 1, yf + dy, xf + dx);
+            const T mid = sample(zf, yf + dy, xf + dx);
+            const T hi = sample(zf + 1, yf + dy, xf + dx);
             gz[dy + 1] = (lo + T(2) * mid) + hi;
         }
         gy[dx + 1] = (gz[0] + T(2) * gz[1]) + gz[2];
     }
     return ((gy[0] + T(2) * gy[1]) + gy[2]) * T(0.125);
+}
+
+// The masked residual of the const-7 operator as a restriction sample.
+template <typename T>
+struct ResidualSample {
+    const T* v;
+    const T* f;
+    int lm;
+    T wc, woff;
+    __device__ __forceinline__ T operator()(int z, int y, int x) const {
+        return masked_residual(v, f, z, y, x, lm, wc, woff);
+    }
+};
+
+// A given fine array r, interior-masked, as a restriction sample.
+template <typename T>
+struct MaskedSample {
+    const T* r;
+    int lm;
+    __device__ __forceinline__ T operator()(int z, int y, int x) const {
+        if (!interior(z, y, x, lm)) return T(0);
+        return r[((long long)z * lm + y) * lm + x];
+    }
+};
+
+// Fused residual + P^T restriction at a coarse point: the 27 residuals
+// around 2I are recomputed from v and f.
+template <typename T>
+__device__ __forceinline__ T restrict_point(const T* __restrict__ v,
+                                            const T* __restrict__ f, int zc,
+                                            int yc, int xc, int lmf, int lmc,
+                                            T wc, T woff) {
+    const ResidualSample<T> sample{v, f, lmf, wc, woff};
+    return restrict_combine<T>(sample, zc, yc, xc, lmc);
 }
 
 // Trilinear prolongation of the lmc^3 coarse array c at fine point

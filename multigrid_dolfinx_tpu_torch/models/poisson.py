@@ -1,13 +1,14 @@
-"""Problem families of the port: 2D Poisson (the reference's problem) and
-3D Poisson (the main path).
+"""Problem families of the port: 2D Poisson (the reference's problem), 3D
+Poisson (the main path) and 3D variable-coefficient diffusion with
+Galerkin coarse operators.
 
-The other constructors of `multigrid_dolfinx_tpu.models` (P2, variable
+The other constructors of `multigrid_dolfinx_tpu.models` (P2, 2D variable
 coefficient, screened) belong to later slices of the port (ROADMAP.md
-queue 1, items 14 and 16).
+queue 1, items 16 and 20, queue 2, item 13).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 from ..config import CycleSpec, HierarchySpec, ProblemSpec, SolverConfig
 
@@ -49,6 +50,36 @@ def poisson3d(
             coarsest_elements=coarsest_elements,
             coarsest_level=coarsest_level,
             finest_level=finest_level,
+        ),
+        cycle=cycle if cycle is not None else CycleSpec(nu1=2, nu2=2),
+        dtype=dtype,
+    )
+
+
+def variable_coefficient_3d(
+    kappa: Callable,
+    finest_level: int = 2,
+    coarsest_level: int = 0,
+    coarsest_elements: int = 8,
+    dtype: str = "float64",
+    cycle: Optional[CycleSpec] = None,
+    exact: Optional[Callable] = None,
+    rhs: Optional[Callable] = None,
+) -> SolverConfig:
+    """3D -div(kappa grad u) = f, kappa evaluated per simplex at its
+    centroid, with Galerkin (RAP) coarse operators (BASELINE.json config
+    4).  kappa, exact and rhs are callables of torch tensors (plain
+    arithmetic works); build with build_var_hierarchy."""
+    return SolverConfig(
+        problem=ProblemSpec(
+            ndim=3, kappa=kappa, exact=exact, rhs=rhs,
+            rhs_const=None if rhs is not None else -12.0,
+        ),
+        hierarchy=HierarchySpec(
+            coarsest_elements=coarsest_elements,
+            coarsest_level=coarsest_level,
+            finest_level=finest_level,
+            coarse_operator="galerkin",
         ),
         cycle=cycle if cycle is not None else CycleSpec(nu1=2, nu2=2),
         dtype=dtype,

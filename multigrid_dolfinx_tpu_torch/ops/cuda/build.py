@@ -22,7 +22,7 @@ PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
 SOURCES = ("stencil3d.cu", "stencil3d_cheby.cu", "stencil3d_tail.cu",
-           "stencil3d_norm.cu", "stencil2d.cu")
+           "stencil3d_norm.cu", "stencil3d_planes.cu", "stencil2d.cu")
 HEADERS = ("stencil3d.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -36,6 +36,14 @@ SIGNATURES = {
     "mg_rb_sweep_f64": "pppiddp",
     "mg_restrict_residual_pt_f32": "pppiiffp",
     "mg_restrict_residual_pt_f64": "pppiiddp",
+    "mg_restrict_pt_f32": "ppiip",
+    "mg_restrict_pt_f64": "ppiip",
+    "mg_planes_residual_f32": "ppppipiiip",
+    "mg_planes_residual_f64": "ppppipiiip",
+    "mg_planes_jacobi_f32": "ppppipiiiffp",
+    "mg_planes_jacobi_f64": "ppppipiiiddp",
+    "mg_planes_gs_sweep_f32": "pppipiiiip",
+    "mg_planes_gs_sweep_f64": "pppipiiiip",
     "mg_prolong_linear_f32": "pppiip",
     "mg_prolong_linear_f64": "pppiip",
     "mg_residual_f32": "pppiffp",

@@ -1,5 +1,5 @@
-"""Const-7-point multigrid kernels K1-K3, K10, K11: CUDA wrappers and
-plain versions.
+"""Const-7-point multigrid kernels K1-K3, K10, K11 and the P^T restriction
+K18: CUDA wrappers and plain versions.
 
 Each `name(...)` launches the hand-written Hopper kernel of
 `csrc/stencil3d.cu` on a CUDA tensor (and raises on anything else); each
@@ -36,6 +36,11 @@ K11 jacobi_sweep replaces stencil3d.py jacobi_sweep: (1-w) v + w cand,
   boundary rows mix to (1-w) v + w f.  Bound: memory, as K10.  Design:
   as K10, out of place into a caller-given buffer, so the smoother
   ping-pongs two buffers and never writes the caller's v.
+K18 restrict_pt replaces stencil3d.py restrict_pt: the two-step masked
+  P^T of a given fine residual (the planes path's restriction).  Bound:
+  memory, r read once and the coarse array written once.  Design: K2's
+  arithmetic with r read instead of recomputed, one thread per coarse
+  point.
 """
 from __future__ import annotations
 
@@ -51,7 +56,7 @@ from ..operators import box_interior_mask
 #: colour launches per call).  Reset with ops.cuda.reset_launch_counts().
 LAUNCHES = {"rb_sweep": 0, "restrict_residual_pt": 0,
             "prolong_linear": 0, "prolong_linear_add": 0,
-            "residual": 0, "jacobi_sweep": 0}
+            "residual": 0, "jacobi_sweep": 0, "restrict_pt": 0}
 
 #: Largest lm whose lm^3 point index fits the 32-bit ints of K10-K12.
 MAX_LM = 1290
@@ -178,11 +183,39 @@ def restrict_residual_pt_ref(v: torch.Tensor, f: torch.Tensor, lmf: int,
     """Plain version of restrict_residual_pt: z, then y, then x."""
     interior = box_interior_mask(v.shape, lmf, v.device)
     vt = torch.where(interior, v, 0.0)
-    r = torch.where(interior, f - (wc * vt + woff * nbr_sum_ref(vt)), 0.0)
-    g = F.pad(r, (1, 1, 1, 1, 1, 1))
+    return restrict_pt_ref(f - (wc * vt + woff * nbr_sum_ref(vt)), lmf, lmc)
+
+
+# ----------------------------------------------------------------------
+# K18: P^T restriction of a given residual
+# ----------------------------------------------------------------------
+
+def restrict_pt(r: torch.Tensor, lmf: int, lmc: int) -> torch.Tensor:
+    """mask_c * 0.125 * [1,2,1]^3 (mask_f r) sampled at even fine
+    indices."""
+    check_tensor(r, "r", (lmf,) * 3)
+    if lmf != 2 * lmc - 1:
+        raise ValueError(f"lmf={lmf} is not 2*lmc-1 for lmc={lmc}")
+    out = torch.empty((lmc,) * 3, dtype=r.dtype, device=r.device)
+    fn = getattr(build.library(), f"mg_restrict_pt_{suffix(r.dtype)}")
+    with torch.cuda.device(r.device):
+        err = fn(r.data_ptr(), out.data_ptr(), lmf, lmc, stream(r))
+    build.check(err, "restrict_pt")
+    LAUNCHES["restrict_pt"] += 1
+    return out
+
+
+def restrict_pt_ref(r: torch.Tensor, lmf: int, lmc: int) -> torch.Tensor:
+    """Plain version of restrict_pt: r masked to the fine interior, then
+    (lo + 2 mid) + hi along z, then y, then x, times 0.125, the coarse
+    boundary zeroed."""
+    g = F.pad(torch.where(box_interior_mask(r.shape, lmf, r.device), r, 0.0),
+              (1, 1, 1, 1, 1, 1))
     for axis in range(3):
         g = combine121(g, axis)
-    return torch.where(box_interior_mask(g.shape, lmc, v.device),
+    if g.shape[0] != lmc:
+        raise ValueError(f"lmc={lmc} does not match fine {tuple(r.shape)}")
+    return torch.where(box_interior_mask(g.shape, lmc, r.device),
                        g * 0.125, 0.0)
 
 

@@ -11,7 +11,8 @@ from __future__ import annotations
 import torch
 
 from .cuda import (stencil2d, stencil3d, stencil3d_cheby, stencil3d_norm,
-                   stencil3d_tail)
+                   stencil3d_planes, stencil3d_tail)
+from .cuda.stencil3d_planes import planes3_colors  # noqa: F401  (re-export)
 from .operators import StencilOperator
 
 POISSON5_2D_OFFSETS = ((-1, 0), (0, -1), (0, 0), (0, 1), (1, 0))
@@ -48,7 +49,8 @@ def require_const5(A: StencilOperator) -> None:
     if not const5_ok(A):
         raise NotImplementedError(
             "2D operators other than the const-5 P1 stencil (variable "
-            "kappa, Galerkin, screened) are ROADMAP.md queue 1, item 14")
+            "kappa, Galerkin, screened) are the 2D planes path, ROADMAP.md "
+            "queue 2, item 13")
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -105,6 +107,32 @@ def tail_up(v0, f_top, vs, fs, lms, weights, nu2):
     if _on_cuda(v0):
         return stencil3d_tail.tail_up(v0, f_top, vs, fs, lms, weights, nu2)
     return stencil3d_tail.tail_up_ref(v0, f_top, vs, fs, lms, weights, nu2)
+
+
+def restrict_pt(r, lmf, lmc):
+    if _on_cuda(r):
+        return stencil3d.restrict_pt(r, lmf, lmc)
+    return stencil3d.restrict_pt_ref(r, lmf, lmc)
+
+
+def planes3_residual(v, f, planes, offsets):
+    if _on_cuda(v):
+        return stencil3d_planes.planes3_residual(v, f, planes, offsets)
+    return stencil3d_planes.planes3_residual_ref(v, f, planes, offsets)
+
+
+def planes3_jacobi_sweep(v, f, planes, offsets, w, out=None):
+    if _on_cuda(v):
+        return stencil3d_planes.planes3_jacobi_sweep(v, f, planes, offsets, w,
+                                                     out)
+    return stencil3d_planes.planes3_jacobi_sweep_ref(v, f, planes, offsets, w,
+                                                     out)
+
+
+def planes3_gs_sweep(v, f, planes, offsets):
+    if _on_cuda(v):
+        return stencil3d_planes.planes3_gs_sweep(v, f, planes, offsets)
+    return stencil3d_planes.planes3_gs_sweep_ref(v, f, planes, offsets)
 
 
 def residual_tet_quad(v, f, lm, wc, woff, diagonal):

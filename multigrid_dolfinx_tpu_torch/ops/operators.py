@@ -1,10 +1,13 @@
-"""Plane-free stencil operators on the logical (n+1)^3 box (torch).
+"""Stencil operators on the logical (n+1)^d box (torch).
 
-The const subset of `multigrid_dolfinx_tpu.ops.operators`:
+The subset of `multigrid_dolfinx_tpu.ops.operators` the port runs:
 
   * the constant-coefficient operator with Dirichlet identity rows, whose
     weights are Python floats and whose interior mask comes from index
     arithmetic — it stores nothing grid-sized;
+  * the stored-planes operator (variable coefficient, Galerkin coarse
+    levels): K coefficient planes of the logical box, row p being
+    sum_k planes[k][p] u[p + off_k] over in-box neighbours;
   * the boundary-class-table operator, the zero-memory form of the
     consistent P1 mass matrix, and its `quadratic_form` / `mass_norm`,
     the plain FEM-L2 residual norm.
@@ -69,13 +72,42 @@ def _pad(u: torch.Tensor, r: int) -> torch.Tensor:
     return F.pad(u, (r, r) * u.ndim)
 
 
+def stencil_radius(offsets) -> int:
+    return max(max(abs(c) for c in off) for off in offsets)
+
+
+def apply_planes(u: torch.Tensor, planes: torch.Tensor, offsets,
+                 skip: Optional[int] = None) -> torch.Tensor:
+    """sum_k planes[k] * u[p + off_k] in the order of `offsets`, from a
+    zero accumulator (the association of the planes kernels K15-K17),
+    leaving out offset index `skip`.  Out-of-box neighbours read the zero
+    padding; the kernels skip them, which is the same sum for finite
+    planes."""
+    r = stencil_radius(offsets)
+    up = _pad(u, r)
+    acc = torch.zeros_like(u)
+    for k, off in enumerate(offsets):
+        if k != skip:
+            acc = acc + planes[k] * _shifted(up, off, u.shape, r)
+    return acc
+
+
+def planes_dinv(planes: torch.Tensor, center: int) -> torch.Tensor:
+    """1 / diag from the centre plane, 1 where it is 0."""
+    pc = planes[center]
+    return 1.0 / torch.where(pc == 0.0, 1.0, pc)
+
+
 @dataclasses.dataclass(frozen=True)
 class StencilOperator:
-    """Plane-free compact-stencil operator on the logical node box.
+    """Compact-stencil operator on the logical node box.
 
     const mode (`const_weights` set): interior row p is
     sum_k w_k u[p + off_k] over interior neighbours; non-interior rows are
-    the identity (the Dirichlet-eliminated stiffness).  class-table mode
+    the identity (the Dirichlet-eliminated stiffness).  planes mode
+    (`planes` set, (K, *grid_shape)): row p is sum_k planes[k][p]
+    u[p + off_k], the planes always Dirichlet-eliminated (bc rows unit,
+    bc columns zero).  class-table mode
     (`class_tables` set): the weight of offset k at node p is
     class_tables[k][class(p)], reads unmasked — the consistent mass matrix; `uniform_p1_mass` certifies that it is the P1
     mass of the uniform Kuhn grid with that diagonal."""
@@ -86,6 +118,7 @@ class StencilOperator:
     const_weights: Optional[Tuple[float, ...]] = None
     class_tables: Optional[torch.Tensor] = None
     uniform_p1_mass: Optional[str] = None
+    planes: Optional[torch.Tensor] = None
 
     @property
     def ndim(self) -> int:
@@ -97,7 +130,13 @@ class StencilOperator:
 
     @property
     def radius(self) -> int:
-        return max(max(abs(c) for c in off) for off in self.offsets)
+        return stencil_radius(self.offsets)
+
+    @property
+    def axis_only(self) -> bool:
+        """Does every offset touch at most one axis (2-colourable by
+        coordinate-sum parity)?"""
+        return all(sum(1 for c in off if c != 0) <= 1 for off in self.offsets)
 
     @property
     def is_const(self) -> bool:
@@ -106,8 +145,15 @@ class StencilOperator:
     def center_index(self) -> int:
         return self.offsets.index((0,) * self.ndim)
 
+    def diag(self) -> torch.Tensor:
+        """The centre plane of a planes operator."""
+        return self.planes[self.center_index()]
+
     def dinv(self, dtype, device=None) -> torch.Tensor:
-        """1 / diag of a const operator, from the interior mask."""
+        """1 / diag: from the centre plane of a planes operator (1 where
+        it is 0), else from the const weight and the interior mask."""
+        if self.planes is not None:
+            return planes_dinv(self.planes, self.center_index())
         w = self.const_weights[self.center_index()]
         interior = box_interior_mask(self.shape, self.logical_m, device)
         one = torch.ones((), dtype=dtype, device=device)
@@ -144,9 +190,7 @@ class StencilOperator:
             return self._apply_class_tables(u)
         if self.is_const:
             return self._apply_const(u)
-        raise NotImplementedError(
-            "stored-planes operators (variable coefficient, Galerkin) are "
-            "ROADMAP.md queue 1, item 14")
+        return apply_planes(u, self.planes, self.offsets)
 
 
 def detect_const_stencil(offsets, planes: np.ndarray,
@@ -178,8 +222,10 @@ def detect_const_stencil(offsets, planes: np.ndarray,
 
 def quadratic_form(op: StencilOperator, u: torch.Tensor,
                    v: torch.Tensor) -> torch.Tensor:
-    """u^T A v as a device reduction."""
-    return torch.sum(u * op.apply(v))
+    """u^T A v as a device reduction, summed in f64 and rounded to u's
+    dtype: the sum's order differs between the CPU and the card, and in
+    f64 that difference stays below an f32 ulp of the result."""
+    return torch.sum(u * op.apply(v), dtype=torch.float64).to(u.dtype)
 
 
 def mass_norm(M: StencilOperator, r: torch.Tensor) -> torch.Tensor:

@@ -1,11 +1,13 @@
 """Smoothers of the port: red-black Gauss-Seidel, weighted Jacobi and
 Chebyshev polynomial smoothing, on the const-7 (3D) and const-5 (2D)
-operators.
+operators; multicolour Gauss-Seidel and weighted Jacobi on 3D
+stored-planes operators.
 
 Each sweep goes through ops.dispatch (a kernel on CUDA, its plain version
 on the CPU): 3D RB-GS through K1, 3D Jacobi through K11, 3D Chebyshev
 through the fused momentum-form step K12; 2D RB-GS through K6, 2D Jacobi
-through K5, 2D Chebyshev in p-form on the residual K7.  Contracts the
+through K5, 2D Chebyshev in p-form on the residual K7; on planes,
+multicolour GS through K17 and Jacobi through K16.  Contracts the
 error norm, the FMG ramp and the reference's cycle counts rely on: after
 every GS sweep, boundary rows hold exactly f; Jacobi mixes them, (1-w) v
 + w f (the reference's jacobiRelaxation with identity rows); Chebyshev
@@ -33,8 +35,9 @@ class SmootherData:
     """Per-level smoother parameters: lmax, the largest eigenvalue of
     Dinv*A (exact for the Dirichlet const stencil; it sets the Chebyshev
     window), the Jacobi weight omega, dinv = 1/diag A as stored by the
-    assembled build (None: taken from the const operator, which stores
-    nothing grid-sized) and the Chebyshev degree convention (see
+    assembled build (None: taken from the operator; a const one stores
+    nothing grid-sized, the planes kernels read the centre plane) and the
+    Chebyshev degree convention (see
     cheby_phase)."""
 
     lmax: float
@@ -122,15 +125,40 @@ def _const7(A: StencilOperator):
     w = dispatch.const7_weights(A)
     if w is None:
         raise NotImplementedError(
-            "3D smoothing of non-const-7 operators is ROADMAP.md queue 1, "
-            "item 14")
+            "3D const operators other than the 7-point stencil have no "
+            "kernel; stored-planes operators (build_var_hierarchy) smooth "
+            "through K16/K17")
     return w
+
+
+def smooth_planes(sm: SmootherData, A: StencilOperator, v: torch.Tensor,
+                  f: torch.Tensor, nsweeps: int, kind: str) -> torch.Tensor:
+    """Sweeps on a 3D stored-planes operator: multicolour GS (K17, the
+    colours of dispatch.planes3_colors, in place on one copy of v a
+    phase) or weighted Jacobi (K16, out of place in two buffers), d = 1/P_c
+    from the centre plane.  The caller's v is never written."""
+    if kind == "chebyshev":
+        raise NotImplementedError(
+            "Chebyshev smoothing on stored-planes operators needs the "
+            "power-iteration lmax, ROADMAP.md queue 1, item 19")
+    if kind == "jacobi":
+        bufs = [torch.empty_like(v) for _ in range(min(nsweeps, 2))]
+        for k in range(nsweeps):
+            v = dispatch.planes3_jacobi_sweep(v, f, A.planes, A.offsets,
+                                              sm.omega, out=bufs[k % 2])
+        return v
+    v = v.clone()
+    for _ in range(nsweeps):
+        dispatch.planes3_gs_sweep(v, f, A.planes, A.offsets)
+    return v
 
 
 def smooth(sm: SmootherData, A: StencilOperator, v: torch.Tensor,
            f: torch.Tensor, nsweeps: int, kind: str) -> torch.Tensor:
     if nsweeps <= 0:
         return v
+    if A.planes is not None:
+        return smooth_planes(sm, A, v, f, nsweeps, kind)
     lm = A.logical_m
     if v.ndim == 2:
         dispatch.require_const5(A)

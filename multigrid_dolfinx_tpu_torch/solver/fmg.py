@@ -6,7 +6,9 @@ residual norm); the histories are preallocated NaN-filled tensors on the
 device, as the JAX package's fixed-size buffers.  The per-cycle check
 r = f - A v, sqrt(r^T M r) runs as kernel K4 in one pass over v and f in
 3D; in 2D it is the residual kernel K7 and the plain class-table mass
-norm, as the JAX package computes it (it has no fused 2D norm kernel).
+norm, as the JAX package computes it (it has no fused 2D norm kernel),
+and on a stored-planes finest level the residual kernel K15 and the
+plain class-table norm, as the JAX package falls back to.
 """
 from __future__ import annotations
 
@@ -70,9 +72,10 @@ def error_norm(hier: Hierarchy, u: torch.Tensor) -> torch.Tensor:
 def check_norm(hier: Hierarchy, v: torch.Tensor,
                f: torch.Tensor) -> torch.Tensor:
     """The per-cycle check sqrt(r^T M r), r = f - A v: through kernel K4
-    in 3D, through K7 and the class-table norm in 2D; in v's dtype."""
+    on a 3D const-7 level; through the residual kernel (K7 in 2D, K15 on
+    planes) and the class-table norm otherwise; in v's dtype."""
     lv = hier.finest
-    if v.ndim == 2:
+    if v.ndim == 2 or lv.A.planes is not None:
         return residual_norm(hier, compute_residual(lv, v, f))
     wc, woff = dispatch.const7_weights(lv.A)
     q = dispatch.residual_tet_quad(v, f, lv.n + 1, wc, woff,

@@ -1,9 +1,11 @@
 """Hierarchy construction: per-level operators, b and g on the device.
 
-Mirrors `multigrid_dolfinx_tpu.solver.hierarchy` for the P1 const path in
-2D and 3D: `build_lean_hierarchy` builds b and g on the device from a
-tiny assembled prototype, `build_hierarchy` assembles every level on the
-host (the reference's rediscretisation) and ships it.  Frozen
+Mirrors `multigrid_dolfinx_tpu.solver.hierarchy` for P1: for constant
+coefficients in 2D and 3D, `build_lean_hierarchy` builds b and g on the
+device from a tiny assembled prototype and `build_hierarchy` assembles
+every level on the host (the reference's rediscretisation) and ships it;
+for variable kappa in 3D, `build_var_hierarchy` builds every level's
+coefficient planes, b and g on the device (fem.fast_var).  Frozen
 dataclasses take the place of the JAX pytrees; every tensor lives on the
 device given to the build function, the CUDA card unless the caller asks
 for the CPU.  Storage is the logical (n+1)^d box,
@@ -22,6 +24,7 @@ from ..config import SolverConfig
 from ..fem import assembly as fem_assembly
 from ..fem.fast_const import (build_const_template, device_level_arrays,
                               mass_class_tables)
+from ..fem import fast_var
 from ..fem.norms import ErrorQuad, error_quadrature
 from ..mesh import build_grid_hierarchy
 from ..ops.coarse import CoarseSolver, build_coarse_solver
@@ -33,8 +36,9 @@ DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
 @dataclasses.dataclass(frozen=True)
 class Level:
-    """One device-resident grid level: const operator A, smoother data,
-    lifted RHS b and Dirichlet values g (0 at interior nodes)."""
+    """One device-resident grid level: operator A (const or planes),
+    smoother data, lifted RHS b and Dirichlet values g (0 at interior
+    nodes)."""
 
     A: StencilOperator
     sm: SmootherData
@@ -93,21 +97,45 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def check_problem(config: SolverConfig) -> None:
-    """Raise NotImplementedError for problems outside the port's slice."""
+def check_problem(config: SolverConfig, var: bool = False) -> None:
+    """Raise for problems outside the port's slices.  var=True checks for
+    build_var_hierarchy (3D P1, variable kappa, constant RHS, either
+    coarse operator, reaction allowed), else for the constant-coefficient
+    builds."""
     p, hs = config.problem, config.hierarchy
     if p.degree != 1:
         raise NotImplementedError("P2 is ROADMAP.md queue 1, item 16")
-    if p.kappa is not None or hs.coarse_operator != "rediscretize":
-        raise NotImplementedError(
-            "variable kappa and Galerkin coarse operators are ROADMAP.md "
-            "queue 1, item 14")
-    if p.reaction != 0.0:
-        raise NotImplementedError(
-            "reaction (screened Poisson) terms are ROADMAP.md queue 1, "
-            "item 14")
     if config.dtype not in DTYPES:
         raise ValueError(f"dtype must be one of {sorted(DTYPES)}")
+    if var:
+        if p.kappa is None:
+            raise ValueError("build_var_hierarchy is the variable-"
+                             "coefficient path; use build_lean_hierarchy "
+                             "for kappa=None")
+        if p.ndim != 3:
+            raise NotImplementedError(
+                "2D variable kappa is ROADMAP.md queue 2, item 13")
+        if p.rhs_const is None:
+            raise NotImplementedError(
+                "build_var_hierarchy needs a constant RHS (rhs_const); "
+                "other right-hand sides need the host-assembled variable-"
+                "kappa build, ROADMAP.md queue 1, item 20")
+        return
+    if p.kappa is not None:
+        raise NotImplementedError(
+            "variable kappa builds with build_var_hierarchy (ROADMAP.md "
+            "queue 1, item 14)")
+    if hs.coarse_operator != "rediscretize":
+        raise NotImplementedError(
+            "Galerkin coarse operators build with build_var_hierarchy "
+            "(variable kappa, ROADMAP.md queue 1, item 14); constant-"
+            "coefficient Galerkin builds are ROADMAP.md queue 1, item 20")
+    if p.reaction != 0.0:
+        raise NotImplementedError(
+            "reaction (screened Poisson) terms build with variable kappa "
+            "through build_var_hierarchy (ROADMAP.md queue 1, item 14); "
+            "screened problems without kappa are ROADMAP.md queue 1, "
+            "item 20")
 
 
 def mass_operator(offsets, class_tables: torch.Tensor, n: int,
@@ -216,9 +244,91 @@ def build_hierarchy(config: SolverConfig, device="cuda") -> Hierarchy:
         w = detect_const_stencil(asm.offsets, asm.A_planes, asm.interior)
         if w is None:
             raise NotImplementedError(
-                "stored-planes operators are ROADMAP.md queue 1, item 14")
+                "assembled levels that are not constant stencils need the "
+                "host-assembled planes build, ROADMAP.md queue 1, item 20")
         center = asm.offsets.index((0,) * g.ndim)
         levels.append(const_level(asm.offsets, w, g, tensor(asm.b),
                                   tensor(asm.g), config,
                                   dinv=tensor(1.0 / asm.A_planes[center])))
     return _finish(config, levels, asms[0], grids, dtype, device)
+
+
+def planes_level(offsets, planes: torch.Tensor, grid, b: torch.Tensor,
+                 g: torch.Tensor, config: SolverConfig) -> Level:
+    """A level with a stored-planes operator (Dirichlet-eliminated); 1/diag
+    is not stored (the kernels and A.dinv() take it from the centre
+    plane); lmax is the JAX var build's 2.0 (only Chebyshev reads it, and
+    the var build raises for Chebyshev)."""
+    A = StencilOperator(offsets=tuple(map(tuple, offsets)),
+                        logical_m=grid.points_per_dim, grid_shape=grid.shape,
+                        planes=planes)
+    sm = SmootherData(lmax=2.0, omega=config.cycle.omega,
+                      cheby_degree=config.cycle.cheby_degree)
+    return Level(A=A, sm=sm, b=b, g=g, n=grid.n, level=grid.level)
+
+
+def check_var_cycle(config: SolverConfig) -> None:
+    """The var build's smoothers are K16 and K17; Chebyshev needs the
+    power-iteration lmax."""
+    if config.cycle.smoother == "chebyshev":
+        raise NotImplementedError(
+            "smoother 'chebyshev' on the variable-kappa build needs the "
+            "power-iteration lmax (fast_var.py device_lmax_dinv_a), "
+            "ROADMAP.md queue 1, item 19")
+
+
+def build_var_hierarchy(config: SolverConfig, device="cuda") -> Hierarchy:
+    """Hierarchy for variable-coefficient 3D P1 on `device` (the CUDA card
+    by default; without one this raises), built there level by level,
+    finest first (fem.fast_var): kappa fields from index coordinates, raw
+    planes as shifted multiply-adds, b and g with lifting by the level's
+    rediscretised raw planes (also in Galerkin mode, as build_hierarchy's
+    per-level assembly), then the operator: the level's own planes
+    (rediscretize; the 15 Kuhn offsets) or P^T A P of the finer level's
+    eliminated planes (galerkin below the finest; the 3^3 box), Dirichlet
+    eliminated in place.  The coarse factor comes from the coarsest
+    eliminated planes in f64; the mass operator is the class table of the
+    constant-coefficient P1 mass.  Stores K planes, b and g per level; no
+    1/diag and no R_omega planes (K16 and K17 form D^-1 (A - D) from A
+    itself)."""
+    check_problem(config, var=True)
+    check_var_cycle(config)
+    device = resolve_device(device)
+    dtype = DTYPES[config.dtype]
+    problem = config.problem
+    grids = build_grid_hierarchy(config.hierarchy, ndim=problem.ndim)
+    template = fast_var.build_var_template(problem)
+    galerkin = config.hierarchy.coarse_operator == "galerkin"
+
+    levels = []
+    prev = None               # (offsets, eliminated planes) of the finer level
+    for idx in range(len(grids) - 1, -1, -1):
+        g = grids[idx]
+        lm = g.points_per_dim
+        raw = fast_var.device_raw_planes(template, g, problem.kappa, dtype,
+                                         device)
+        b, gdir = fast_var.device_level_b_g(template, g, problem, raw, dtype)
+        if galerkin and prev is not None:
+            del raw
+            offs, planes = fast_var.galerkin_rap_device(
+                prev[0], prev[1], grids[idx + 1].points_per_dim)
+        else:
+            offs, planes = template.offsets, raw
+        planes = fast_var.eliminate_dirichlet_device(offs, planes, lm)
+        levels.append(planes_level(offs, planes, g, b, gdir, config))
+        prev = (offs, planes)
+    levels.reverse()                        # coarsest .. finest
+
+    coarse = build_coarse_solver(
+        levels[0].A.offsets, levels[0].A.planes.cpu().double().numpy(),
+        kind=config.cycle.coarse_solver, device=device)
+    const_prob = dataclasses.replace(problem, kappa=None, reaction=0.0)
+    m_offsets, m_tables = mass_class_tables(const_prob)
+    g_f = grids[-1]
+    M_fine = mass_operator(
+        m_offsets,
+        torch.as_tensor(m_tables * (g_f.h * 4.0) ** g_f.ndim, dtype=dtype,
+                        device=device),
+        g_f.n, problem.diagonal)
+    return Hierarchy(levels=tuple(levels), coarse=coarse, M_fine=M_fine,
+                     err_quad=error_quadrature(g_f, problem))

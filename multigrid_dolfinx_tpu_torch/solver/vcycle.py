@@ -8,10 +8,14 @@ with a zero initial guess down to the factorised coarse solve, the fused
 prolongation + correction (K3) and ν2 sweeps.  As in the JAX package,
 an f32 red-black V-cycle runs the levels at and below TAIL_MAX_LM as the
 fused coarse tail: the down leg (K13), the coarse solve and the up leg
-(K14), two launches in all.  In 2D a level runs ν1 sweeps (K5 Jacobi,
-K6 red-black or Chebyshev on K7), the residual (K7), its restriction
-(K8 for 'pt', plain injection otherwise), the recursion, v + P(vc)
-through K9 (the JAX package has no fused 2D correction) and ν2 sweeps.
+(K14), two launches in all.  A 3D stored-planes level (variable kappa,
+Galerkin) runs ν1 sweeps (K17 multicolour GS or K16 Jacobi), the
+residual (K15) and its P^T restriction (K18) in two steps, the
+recursion, the correction through K3 and ν2 sweeps.  In 2D a level runs
+ν1 sweeps (K5 Jacobi, K6 red-black or Chebyshev on K7), the residual
+(K7), its restriction (K8 for 'pt', plain injection otherwise), the
+recursion, v + P(vc) through K9 (the JAX package has no fused 2D
+correction) and ν2 sweeps.
 """
 from __future__ import annotations
 
@@ -40,8 +44,12 @@ def check_slice(spec: CycleSpec) -> None:
 
 
 def compute_residual(level, v: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
-    """r = f - A v: kernel K7 in 2D, K10 in 3D (boundary rows f - v)."""
+    """r = f - A v: kernel K7 in 2D, K10 in 3D (boundary rows f - v), K15
+    on 3D stored planes."""
     lm = level.n + 1
+    if level.A.planes is not None:
+        return dispatch.planes3_residual(v, f, level.A.planes,
+                                         level.A.offsets)
     if v.ndim == 2:
         dispatch.require_const5(level.A)
         return dispatch.residual_2d(v, f, lm)
@@ -50,12 +58,15 @@ def compute_residual(level, v: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
 
 
 def restrict_level(r: torch.Tensor, lv, lv_c, kind: str) -> torch.Tensor:
-    """Restrict a fine residual: 2D 'pt' through K8, 'injection' (2D and
-    3D) as a strided copy.  'pt' is the pure correction equation: the
-    error vanishes at Dirichlet nodes, so K8 masks the fine boundary
-    residual out and zeroes the coarse boundary.  'injection' carries the
-    boundary residual through, as the reference does."""
+    """Restrict a fine residual: 'pt' through K8 in 2D and K18 in 3D,
+    'injection' (2D and 3D) as a strided copy.  'pt' is the pure
+    correction equation: the error vanishes at Dirichlet nodes, so the
+    kernels mask the fine boundary residual out and zero the coarse
+    boundary.  'injection' carries the boundary residual through, as the
+    reference does."""
     if kind == "pt":
+        if r.ndim == 3:
+            return dispatch.restrict_pt(r, lv.n + 1, lv_c.n + 1)
         return dispatch.restrict_pt_2d(r, lv.n + 1, lv_c.n + 1)
     return transfer.restrict(r, kind)
 
@@ -73,9 +84,10 @@ def prolong_level(vc: torch.Tensor, fine_level,
 
 def _coarse_rhs(lv, lv_c, v, f, spec: CycleSpec) -> torch.Tensor:
     """The coarse right-hand side from the smoothed v: P^T (f - A v) in
-    one pass over v and f (K2) in 3D, residual then restriction in 2D and
-    for 3D injection."""
-    if v.ndim == 2 or spec.restriction != "pt":
+    one pass over v and f (K2) on const-7 levels, residual then
+    restriction in 2D, on planes levels (K15, K18) and for injection."""
+    if (v.ndim == 2 or spec.restriction != "pt"
+            or lv.A.planes is not None):
         return restrict_level(compute_residual(lv, v, f), lv, lv_c,
                               spec.restriction)
     wc, woff = dispatch.const7_weights(lv.A)

@@ -1,8 +1,9 @@
 """Carry a hierarchy's state across from plain numpy arrays.
 
 `hierarchy_from_numpy` rebuilds the port's Hierarchy from the state of a
-JAX-package hierarchy (2D or 3D, lean or assembled) written out as numpy
-arrays and Python scalars, so both packages can run from the same state.
+JAX-package hierarchy (2D or 3D, lean or assembled, or the 3D
+variable-kappa build) written out as numpy arrays and Python scalars, so
+both packages can run from the same state.
 It imports nothing of JAX; the caller does the jax -> numpy step, e.g.
 
     arrays = {
@@ -20,12 +21,17 @@ It imports nothing of JAX; the caller does the jax -> numpy step, e.g.
     }
 
 with `dinv` the stored 1/diag A of an assembled hierarchy (None for a
-lean one, whose const operator gives it).  The Chebyshev degree is the
+lean one, whose const operator gives it).  A level of a variable-kappa
+hierarchy carries `"planes": np.asarray(lv.A.planes)` and its `offsets`
+instead of `weights` (the config then has kappa set); a `dinv` it
+carries is not read, the centre plane gives it.  The Chebyshev degree is the
 config's and the window ratio 4.0 in both packages, so a JAX lean
 Chebyshev hierarchy carried across this way with its lmax gives the same
 Chebyshev window, hence the same solve.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -35,15 +41,19 @@ from ..fem.fast_const import mass_class_tables
 from ..fem.norms import error_quadrature
 from ..mesh import GridLevel
 from ..ops.coarse import coarse_solver_from_numpy
-from ..solver.hierarchy import (DTYPES, Hierarchy, check_problem, const_level,
-                                mass_operator, resolve_device)
+from ..solver.hierarchy import (DTYPES, Hierarchy, check_problem,
+                                check_var_cycle, const_level, mass_operator,
+                                planes_level, resolve_device)
 
 
 def hierarchy_from_numpy(arrays: dict, config: SolverConfig,
                          device="cuda") -> Hierarchy:
     """The port's Hierarchy on `device` (the CUDA card by default) from
     numpy state (see module doc)."""
-    check_problem(config)
+    var = config.problem.kappa is not None
+    check_problem(config, var=var)
+    if var:
+        check_var_cycle(config)
     device = resolve_device(device)
     dtype = DTYPES[config.dtype]
     ndim = config.problem.ndim
@@ -54,6 +64,11 @@ def hierarchy_from_numpy(arrays: dict, config: SolverConfig,
     levels = []
     for lvl, st in zip(config.hierarchy.levels(), arrays["levels"]):
         grid = GridLevel(level=lvl, ndim=ndim, n=int(st["n"]))
+        if st.get("planes") is not None:
+            levels.append(planes_level(
+                st["offsets"], tensor(st["planes"]), grid, tensor(st["b"]),
+                tensor(st["g"]), config))
+            continue
         dinv = st.get("dinv")
         levels.append(const_level(
             st["offsets"], st["weights"], grid, tensor(st["b"]),
@@ -66,7 +81,8 @@ def hierarchy_from_numpy(arrays: dict, config: SolverConfig,
     n0 = levels[0].n
     coarse = coarse_solver_from_numpy(c["factor"], c.get("piv"), c["kind"],
                                       (n0 + 1,) * ndim, device)
-    m_offsets, _ = mass_class_tables(config.problem)
+    m_offsets, _ = mass_class_tables(dataclasses.replace(
+        config.problem, kappa=None, reaction=0.0))
     n_f = levels[-1].n
     M_fine = mass_operator(m_offsets, tensor(arrays["class_tables"]), n_f,
                            arrays.get("uniform_p1_mass",

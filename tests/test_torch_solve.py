@@ -234,7 +234,8 @@ def test_cycle_options_outside_the_slice_raise(cycle, match):
 @pytest.mark.parametrize("problem,match", [
     (dict(ndim=2, degree=2, rhs_const=-6.0), "item 16"),
     (dict(ndim=3, degree=2, rhs_const=-12.0), "item 16"),
-    (dict(ndim=3, rhs_const=-12.0, kappa=lambda x, y, z: 1.0 + x), "item 14"),
+    pytest.param(dict(ndim=3, rhs_const=-12.0, kappa=lambda x, y, z: 1.0 + x),
+                 "build_var_hierarchy", id="problem2-item 14"),
     (dict(ndim=3, rhs_const=-12.0, reaction=1.0), "item 14"),
 ])
 def test_problems_outside_the_slice_raise(problem, match):
@@ -274,8 +275,9 @@ def test_cuda_device_without_a_card_raises():
 def test_port_never_imports_jax():
     """A fresh interpreter importing the port (and running a tiny 3D lean
     solve in f64 and in f32, through the fused tail, a 2D assembled solve,
-    MG-CG with 3D Jacobi and a Chebyshev solve) has no jax in sys.modules.  A subprocess: this test file imports
-    jax."""
+    MG-CG with 3D Jacobi, a Chebyshev solve and a variable-kappa Galerkin
+    solve) has no jax in sys.modules.  A subprocess: this test file
+    imports jax."""
     code = (
         "import sys, torch\n"
         "import multigrid_dolfinx_tpu_torch as T\n"
@@ -304,6 +306,10 @@ def test_port_never_imports_jax():
         " coarsest_elements=4, dtype='float64', cycle=c3), device='cpu')\n"
         "    assert T.solve_mgcg(h3, c3, fmg_start=False).converged, sm\n"
         "    assert T.solve(h3, c3).converged, sm\n"
+        "cv = T.models.variable_coefficient_3d(lambda x, y, z: 1.0 + x + 2.0 * y"
+        " + z, finest_level=1, coarsest_elements=8, cycle=cyc)\n"
+        "rv = T.solve(T.build_var_hierarchy(cv, device='cpu'), cyc)\n"
+        "assert rv.converged and rv.u.shape == (17, 17, 17)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('multigrid_dolfinx_tpu.') "
         " or m == 'multigrid_dolfinx_tpu']\n"
