@@ -72,14 +72,31 @@ Phases (each prints one line; any failure exits nonzero with no result):
      hierarchy; a witness, the f64 solve on the f32 build's operator
      (planes, b and g cast up), whose u the f32 run must meet within 1e-4
      everywhere; the same configuration in f64, whose u(1/2,1/2,1/2) the
-     witness must meet within 1.2e-3 (f32 rounding of the operator).
-Each main path (5, 7, 9, each run of 12 and of 16) sets the launch counts
+     witness must meet within 1.2e-3 (f32 rounding of the operator);
+ 17. the P2 kernels K19-K21 (residual, snap Jacobi, raw mass quadratic
+     form) against their plain versions in f32 and f64 at lattices
+     P2_LMS, on seeded random v and f with each lattice's own parity
+     tables, bitwise; kernel / plain times at 513^3 f32;
+ 18. the P2 slice at the 65^3 lattice in f32 (V(2,2) snap Jacobi, rtol
+     1e-6): the hierarchy built on the CPU and carried to the card solves
+     in the CPU's cycle count with res_hist within RTOL_P2_SMALL of the
+     CPU's (bitwise expected), the card-built one in the same count;
+ 19. BASELINE config 4's constant-coefficient P2 path at full width
+     (scripts/bench_p2_solve.py 256's configuration, storage unpadded:
+     6 levels, lattices 17^3 ... 513^3, f32, FMG + V(2,2) snap Jacobi to
+     rtol 2e-8, then MG-CG from FMG on the same hierarchy): build and
+     coarse-factor seconds, cycles, iterations, 10 V-cycles timed, the
+     check timed, launches, peak memory, u(1/2,1/2,1/2) (within 1e-2 of
+     2.5) and max|u - u*| over the nodes, also after 4 more cycles and in
+     an f64 twin; no plain kernel version runs on the card during either
+     path.
+Each main path (5, 7, 9, each run of 12, 16 and 19) sets the launch counts
 to 0 just before it runs and reads them just after.  Each kernel's record
 carries its time, its plain version's, the time of one PyTorch call that
 computes the same function where there is one (library_ms, else null;
 never called by the port) and its bound: the larger of the bytes it must
 move over 3.35 TB/s and its f32 operations over 67 TFLOP/s (H100 SXM).
-The second-to-last line is the kernels' JSON record (K1-K18, each with
+The second-to-last line is the kernels' JSON record (K1-K21, each with
 the launches of the main path that runs it), the last line {"ok": true,
 "device": {...}}.  nvcc's report and the full record go to --out (default
 build/chip_smoke/, under the checkout).  Imports nothing of JAX.
@@ -126,6 +143,9 @@ TPU_KERNELS = {
     "planes3_jacobi_sweep": "multigrid_dolfinx_tpu/ops/pallas/stencil3d.py:1499",
     "planes3_gs_sweep": "multigrid_dolfinx_tpu/ops/pallas/stencil3d.py:1479",
     "restrict_pt": "multigrid_dolfinx_tpu/ops/pallas/stencil3d.py:903",
+    "p2_residual": "multigrid_dolfinx_tpu/ops/pallas/stencil3d_p2.py:240",
+    "p2_jacobi_sweep": "multigrid_dolfinx_tpu/ops/pallas/stencil3d_p2.py:247",
+    "p2_mass_quad": "multigrid_dolfinx_tpu/ops/pallas/stencil3d_p2.py:429",
 }
 KERNELS_3D = ("rb_sweep", "restrict_residual_pt", "prolong_linear_add",
               "prolong_linear", "residual_tet_quad")
@@ -138,6 +158,14 @@ KERNELS_TAIL = ("tail_down", "tail_up")
 KERNELS_PLANES = ("planes3_residual", "planes3_jacobi_sweep",
                   "planes3_gs_sweep", "restrict_pt")
 PLANES_LMS = (9, 17, 65, 129, 257, 385)
+KERNELS_P2 = ("p2_residual", "p2_jacobi_sweep", "p2_mass_quad")
+P2_LMS = (9, 17, 33, 65, 129, 257, 513)
+TIMED_LM_P2 = 513         # the P2 finest lattice (256^3 elements)
+# the 65^3-lattice P2 solve, card vs CPU: the kernels are bitwise their
+# plain versions and K21 sums in a fixed order, so res_hist is expected
+# bitwise; held to one f32 ulp of relative room (the coarse solve is an f64
+# library solve, rounded to f32, in another order on each device)
+RTOL_P2_SMALL = 1.2e-7
 TIMED_LM_VAR = 385        # the 384^3 variable-kappa finest level
 AXIS7 = ((-1, 0, 0), (0, -1, 0), (0, 0, -1), (0, 0, 0), (0, 0, 1),
          (0, 1, 0), (1, 0, 0))
@@ -165,6 +193,8 @@ SOURCES = {
     **{k: "multigrid_dolfinx_tpu_torch/csrc/stencil3d_planes.cu"
        for k in KERNELS_PLANES[:3]},
     "restrict_pt": "multigrid_dolfinx_tpu_torch/csrc/stencil3d.cu",
+    **{k: "multigrid_dolfinx_tpu_torch/csrc/stencil3d_p2.cu"
+       for k in KERNELS_P2},
 }
 # H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s and f32 FLOP/s
 # outside the tensor cores.
@@ -191,7 +221,9 @@ ARRAYS = {"rb_sweep": (3, 0), "restrict_residual_pt": (2, 1),
           "restrict_pt_2d": (1, 1), "prolong_linear_2d": (1, 1),
           "residual": (3, 0), "jacobi_sweep": (3, 0), "cheby_step": (4, 0),
           "planes3_residual": (18, 0), "planes3_jacobi_sweep": (18, 0),
-          "planes3_gs_sweep": (18, 0), "restrict_pt": (1, 1)}
+          "planes3_gs_sweep": (18, 0), "restrict_pt": (1, 1),
+          "p2_residual": (3, 0), "p2_jacobi_sweep": (3, 0),
+          "p2_mass_quad": (1, 0)}
 RTOL_64 = {"C": 1e-7, "G1": 1e-6}     # above the f32 floor at 64^3
 # K1-K3 and K5-K9 must agree to 1e-6 of the reference's magnitude (bitwise is
 # expected: same association order, kernels built with --fmad=false); K4
@@ -1520,6 +1552,384 @@ def phase_var(torch, np, mg, card, records):
     return launches, out
 
 
+def p2_tables(torch, lm, dtype):
+    """(stiffness offsets, tables, mass offsets, tables) of the P2 level
+    on an lm^3 lattice, scaled as build_p2_hierarchy scales them."""
+    import multigrid_dolfinx_tpu_torch as mg
+    from multigrid_dolfinx_tpu_torch.fem import fast_p2
+
+    t = fast_p2.build_p2_template(mg.models.poisson3d_p2().problem)
+    h = 2.0 / (lm - 1)
+    return (t.offsets, fast_p2.level_tables(t.a_unit, h, dtype, "cuda"),
+            t.m_offsets, fast_p2.level_tables(t.m_unit, h ** 3, dtype,
+                                              "cuda"))
+
+
+def p2_ops_per_node(tables, lm, name):
+    """f32 operations a node of kernel `name` does on an lm^3 lattice with
+    these tables, counted from csrc/stencil3d_p2.cu (zero weights are
+    skipped): K19 a multiply and an add per nonzero weight of the node's
+    parity class and the subtraction, f - v on boundary rows; K20 the same
+    without the centre, and 4 more (keep v, f - acc, the product, the
+    sum), nothing on boundary rows; K21 on every node, with its true
+    class, and the product r (M r) and its f64 sum."""
+    nnz = (tables != 0).sum(0).cpu().tolist()          # (64,) per class
+    inner = [i for i in range(1, lm - 1)]
+    count = {0: 1, 1: sum(1 for i in inner if i % 2 == 0),
+             2: sum(1 for i in inner if i % 2 == 1), 3: 1}
+    total, n_int = 0.0, 0
+    for cz in range(4):
+        for cy in range(4):
+            for cx in range(4):
+                n = count[cz] * count[cy] * count[cx]
+                k = nnz[(cz * 4 + cy) * 4 + cx]
+                interior = all(c in (1, 2) for c in (cz, cy, cx))
+                if name == "p2_mass_quad":
+                    total += n * (2 * k + 2)
+                elif interior:
+                    n_int += n
+                    total += n * (2 * k + 1 if name == "p2_residual"
+                                  else 2 * (k - 1) + 4)
+    if name == "p2_residual":
+        total += lm ** 3 - n_int
+    return total / lm ** 3
+
+
+class PlainCalls:
+    """Counts the calls of every plain kernel version (the `*_ref`
+    functions of ops/cuda/*.py) while active: on the card a main path
+    must make none."""
+
+    def __enter__(self):
+        from multigrid_dolfinx_tpu_torch.ops import cuda as kcuda
+
+        self.calls, self.saved = {}, []
+        for mod in (kcuda.stencil2d, kcuda.stencil3d, kcuda.stencil3d_cheby,
+                    kcuda.stencil3d_norm, kcuda.stencil3d_p2,
+                    kcuda.stencil3d_planes, kcuda.stencil3d_tail):
+            for name in dir(mod):
+                fn = getattr(mod, name)
+                if name.endswith("_ref") and callable(fn):
+                    self.saved.append((mod, name, fn))
+                    setattr(mod, name, self._counted(name, fn))
+        return self
+
+    def _counted(self, name, fn):
+        def run(*a, **kw):
+            self.calls[name] = self.calls.get(name, 0) + 1
+            return fn(*a, **kw)
+        return run
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+        return False
+
+
+def p2_conv_library(torch, v, tables, offsets):
+    """One cuDNN conv3d (TF32 off) computing the P2 stencil sum of v at
+    every node from its parity class's weights: 8 output channels (the
+    classes), a 6^3 kernel holding each class's 51 weights shifted by its
+    parity, stride 2; no masks and no boundary rows.  A yardstick for K19,
+    never called by the port."""
+    from multigrid_dolfinx_tpu_torch.ops.cuda.stencil3d_p2 import (
+        INTERIOR_CLASSES)
+
+    F = torch.nn.functional
+    W = torch.zeros((8, 1, 6, 6, 6), dtype=v.dtype, device=v.device)
+    for c, flat in enumerate(INTERIOR_CLASSES):
+        pz, py, px = c >> 2, (c >> 1) & 1, c & 1
+        for k, (dz, dy, dx) in enumerate(offsets):
+            W[c, 0, dz + pz + 2, dy + py + 2, dx + px + 2] = tables[k, flat]
+    vp = F.pad(v, (2, 3) * 3)[None, None]
+    return no_tf32(torch, lambda: F.conv3d(vp, W, stride=2))
+
+
+def phase_p2_kernels(torch, np, mg, records):
+    """K19-K21 against their plain versions on the card, bitwise, in f32
+    and f64 at P2_LMS with each lattice's own tables (so zero weights are
+    skipped as on the main path), K21 also on r = f (nonzero face rows);
+    then kernel / plain times at 513^3 f32."""
+    from multigrid_dolfinx_tpu_torch.ops import cuda as kcuda
+    from multigrid_dolfinx_tpu_torch.ops.cuda import stencil3d_p2 as k2
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    w = 2.0 / 3.0
+    err = {}
+    kcuda.reset_launch_counts()
+    for dtype in (torch.float32, torch.float64):
+        for lm in P2_LMS:
+            offs, a_t, m_offs, m_t = p2_tables(torch, lm, dtype)
+            v, f = (torch.randn((lm,) * 3, generator=gen, device="cuda",
+                                dtype=dtype) for _ in range(2))
+            r = k2.p2_residual(v, f, a_t, offs)
+            cases = [
+                ("p2_residual", r, k2.p2_residual_ref(v, f, a_t, offs)),
+                ("p2_jacobi_sweep", k2.p2_jacobi_sweep(v, f, a_t, offs, w),
+                 k2.p2_jacobi_sweep_ref(v, f, a_t, offs, w)),
+                ("p2_mass_quad", k2.p2_mass_quad(r, m_t, m_offs),
+                 k2.p2_mass_quad_ref(r, m_t, m_offs)),
+                ("p2_mass_quad", k2.p2_mass_quad(f, m_t, m_offs),
+                 k2.p2_mass_quad_ref(f, m_t, m_offs)),
+            ]
+            torch.cuda.synchronize()
+            parts = []
+            for name, out, ref in cases:
+                check_close(name, out, ref, 0.0, err, parts,
+                            f"lm={lm} {dtype}")
+                if not bool(torch.isfinite(out).all()):
+                    raise AssertionError(f"{name} at lm={lm}: non-finite")
+            print(f"phase 17 lm={lm} {str(dtype)[6:]}: max|kernel-plain| "
+                  + " ".join(parts) + f"; q(r)={float(cases[2][1])!r}")
+            del v, f, r, cases
+            torch.cuda.empty_cache()
+    counts = kcuda.launch_counts()
+    missing = [k for k in KERNELS_P2 if counts.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"launch counters did not move: {missing}")
+
+    lm = TIMED_LM_P2
+    offs, a_t, m_offs, m_t = p2_tables(torch, lm, torch.float32)
+    v, f = (torch.randn((lm,) * 3, generator=gen, device="cuda")
+            for _ in range(2))
+    out = torch.empty_like(v)
+    pairs = {
+        "p2_residual": (lambda: k2.p2_residual(v, f, a_t, offs),
+                        lambda: k2.p2_residual_ref(v, f, a_t, offs)),
+        "p2_jacobi_sweep": (
+            lambda: k2.p2_jacobi_sweep(v, f, a_t, offs, w, out),
+            lambda: k2.p2_jacobi_sweep_ref(v, f, a_t, offs, w)),
+        "p2_mass_quad": (lambda: k2.p2_mass_quad(v, m_t, m_offs),
+                         lambda: k2.p2_mass_quad_ref(v, m_t, m_offs)),
+    }
+    for name in KERNELS_P2:
+        OPS[name] = p2_ops_per_node(m_t if name == "p2_mass_quad" else a_t,
+                                    lm, name)
+    print("phase 17 f32 operations a node at lm=513 (nonzero weights): "
+          + ", ".join(f"{k} {OPS[k]:.3f}" for k in KERNELS_P2))
+    library = {"p2_residual": p2_conv_library(torch, v, a_t, offs)}
+    time_pairs(torch, pairs, err, records, f"phase 17 time at lm={lm} f32",
+               {k: (lm ** 3, 0) for k in pairs}, library)
+    del v, f, out
+    torch.cuda.empty_cache()
+    return {"max_abs_err": {k: err[k] for k in KERNELS_P2}}
+
+
+def p2_config(mg, finest_level, dtype, rtol):
+    """poisson3d_p2 with coarsest_elements 8 (a 17^3 coarsest lattice) and
+    V(2,2) snap-Jacobi, P^T."""
+    cyc = mg.CycleSpec(nu1=2, nu2=2, smoother="jacobi", restriction="pt",
+                       tol=0.0, rtol=rtol, max_cycles=40, track_error=False)
+    return mg.models.poisson3d_p2(finest_level=finest_level,
+                                  coarsest_level=0, coarsest_elements=8,
+                                  dtype=dtype, cycle=cyc), cyc
+
+
+def p2_state(hier):
+    """A port P2 hierarchy's state as numpy (utils.convert's format)."""
+    return {
+        "levels": [{"b": lv.b.cpu().numpy(), "g": lv.g.cpu().numpy(),
+                    "n": lv.n, "lm": lv.n + 1, "offsets": lv.A.offsets,
+                    "parity_tables": lv.A.parity_tables.cpu().numpy()}
+                   for lv in hier.levels],
+        "coarse": {"factor": hier.coarse.factor.cpu().numpy(), "piv": None,
+                   "kind": hier.coarse.kind},
+        "m_parity_tables": hier.M_fine.parity_tables.cpu().numpy(),
+        "m_offsets": hier.M_fine.offsets,
+    }
+
+
+def phase_small_p2(torch, np, mg):
+    """The P2 slice at the 65^3 lattice in f32, V(2,2) snap Jacobi, rtol
+    1e-6: the CPU-built hierarchy carried to the card against the CPU's
+    solve, and the card-built one."""
+    torch.set_num_threads(8)
+    cfg, cyc = p2_config(mg, 2, "float32", 1e-6)
+    h_cpu = mg.build_p2_hierarchy(cfg, device="cpu")
+    cpu = mg.solve(h_cpu, cyc)
+    carried = mg.solve(mg.hierarchy_from_numpy(p2_state(h_cpu), cfg), cyc)
+    h_card = mg.build_p2_hierarchy(cfg)
+    built = mg.solve(h_card, cyc)
+    k = cpu.num_cycles
+    hc = cpu.res_hist[:k].double().numpy()
+    hg = carried.res_hist[:carried.num_cycles].double().cpu().numpy()
+    hb = built.res_hist[:built.num_cycles].double().cpu().numpy()
+    db = max(float((a.b.cpu() - c.b).abs().max())
+             for a, c in zip(h_card.levels, h_cpu.levels))
+    bitwise = carried.num_cycles == k and np.array_equal(hg, hc)
+    print(f"phase 18 65^3 P2 f32 jacobi: cpu {k} cycles {hc.tolist()}; "
+          f"carried to the card {carried.num_cycles} {hg.tolist()} (bitwise "
+          f"{bitwise}); card-built {built.num_cycles} {hb.tolist()}; "
+          f"max|b_card - b_cpu| {db:.3e}")
+    if not (cpu.converged and carried.converged and built.converged):
+        raise AssertionError("65^3 P2 did not converge")
+    if carried.num_cycles != k or built.num_cycles != k:
+        raise AssertionError(f"65^3 P2: card {carried.num_cycles} / "
+                             f"{built.num_cycles} cycles, cpu {k}")
+    rel = np.abs(hg - hc) / np.abs(hc)
+    if not np.all(rel <= RTOL_P2_SMALL):
+        raise AssertionError(f"65^3 P2 res_hist differs: rel {rel.tolist()}")
+    return {"cycles": k, "res_hist": hc.tolist(), "bitwise": bitwise,
+            "card_built_res_hist": hb.tolist(), "max_abs_b_diff": db}
+
+
+def p2_run(torch, mg, hier, cyc, label, fn):
+    """fn(hier, cyc) with the launch counts set to 0 just before and read
+    just after, and no plain kernel version called in between."""
+    from multigrid_dolfinx_tpu_torch.ops import cuda as kcuda
+
+    torch.cuda.synchronize()
+    kcuda.reset_launch_counts()
+    with PlainCalls() as plain:
+        t0 = time.perf_counter()
+        res = fn(hier, cyc)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    counts = kcuda.launch_counts()
+    if plain.calls:
+        raise AssertionError(f"{label} ran plain versions: {plain.calls}")
+    missing = [k for k in KERNELS_P2 + ("restrict_pt", "prolong_linear_add",
+                                        "prolong_linear")
+               if counts.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"{label} did not launch {missing}")
+    return res, secs, counts
+
+
+def p2_max_error(torch, u):
+    """max|u - u*| over the lattice nodes, u* = 1 + x^2 + 2y^2 + 3z^2 in
+    f64 (it lies in the P2 space, so the discrete solution equals it)."""
+    lm = u.shape[0]
+    ax = torch.arange(lm, device=u.device, dtype=torch.float64) / (lm - 1)
+    ustar = (1.0 + ax.view(-1, 1, 1) ** 2 + 2.0 * ax.view(1, -1, 1) ** 2
+             + 3.0 * ax.view(1, 1, -1) ** 2)
+    return float((u.double() - ustar).abs().max())
+
+
+def p2_more_cycles(torch, mg, hier, cyc, u):
+    """res_hist, u(1/2,1/2,1/2) and max|u - u*| after 4 more V-cycles from
+    u: where the iteration settles below the rtol."""
+    more = mg.resume_solve(hier, dataclasses.replace(cyc, rtol=0.0,
+                                                     max_cycles=4), u)
+    mid = hier.finest.n // 2
+    out = {"res_hist": more.res_hist[:more.num_cycles].double().cpu()
+           .numpy().tolist(), "u_mid": float(more.u[mid, mid, mid]),
+           "max_abs_u_minus_ustar": p2_max_error(torch, more.u)}
+    print(f"phase 19 {str(u.dtype)[6:]} 4 more cycles: res_hist "
+          f"{out['res_hist']}, u(1/2,1/2,1/2)={out['u_mid']!r}, max|u-u*| "
+          f"{out['max_abs_u_minus_ustar']:.4e}")
+    return out
+
+
+def phase_p2(torch, np, mg, card):
+    """BASELINE config 4's constant-coefficient P2 path at full width:
+    513^3 lattice f32, FMG + V(2,2) snap-Jacobi tolerance solve to rtol
+    2e-8, then MG-CG from FMG on the same hierarchy; 4 more cycles from
+    the solve's u, and the same solve in f64, say what limits max|u -
+    u*|."""
+    from multigrid_dolfinx_tpu_torch.solver import hierarchy as hmod
+    from multigrid_dolfinx_tpu_torch.solver.fmg import check_norm
+
+    cfg, cyc = p2_config(mg, 5, "float32", 2e-8)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    factor_s = [0.0]
+    build_coarse = hmod.build_coarse_solver
+
+    def timed_coarse(*a, **kw):
+        t = time.perf_counter()
+        c = build_coarse(*a, **kw)
+        factor_s[0] += time.perf_counter() - t
+        return c
+
+    hmod.build_coarse_solver = timed_coarse
+    try:
+        t0 = time.perf_counter()
+        hier = mg.build_p2_hierarchy(cfg)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+    finally:
+        hmod.build_coarse_solver = build_coarse
+    res, solve_s, counts = p2_run(torch, mg, hier, cyc, "P2 solve", mg.solve)
+    lm = hier.finest.n + 1
+    mid = lm // 2
+    u_mid = float(res.u[mid, mid, mid])
+    du = p2_max_error(torch, res.u)
+    hist = res.res_hist[:res.num_cycles].double().cpu().numpy().tolist()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    out = {"levels": [lv.n + 1 for lv in hier.levels], "build_s": build_s,
+           "coarse_factor_s": factor_s[0], "solve_s": solve_s,
+           "cycles": res.num_cycles, "converged": res.converged,
+           "res_hist": hist, "u_mid": u_mid, "max_abs_u_minus_ustar": du,
+           "peak_gb": peak,
+           "launches": {k: c for k, c in counts.items() if c}}
+    print(f"phase 19 P2 513^3 f32: levels {out['levels']}, build "
+          f"{build_s:.3f} s (coarse factor {factor_s[0]:.3f} s), solve "
+          f"{solve_s:.3f} s, {res.num_cycles} cycles after FMG, converged="
+          f"{res.converged} diverged={res.diverged}, res_hist {hist}, "
+          f"u(1/2,1/2,1/2)={u_mid!r}, max|u-u*| {du:.4e}, peak {peak:.2f} "
+          f"GB, launches {out['launches']}")
+    if not res.converged or res.diverged:
+        raise AssertionError("P2 513^3 solve did not converge")
+    if res.num_cycles > 3:
+        raise AssertionError(f"P2 513^3 took {res.num_cycles} cycles (> 3)")
+    if not abs(u_mid - 2.5) < 1e-2:
+        raise AssertionError(f"P2 u(1/2,1/2,1/2) = {u_mid} is not 2.5 +- 1e-2")
+
+    out["more_cycles"] = p2_more_cycles(torch, mg, hier, cyc, res.u)
+    ms, rooted = time_vcycles(torch, mg, hier, cyc, res.u)
+    check = time_ms(torch, lambda: check_norm(hier, res.u, hier.finest.b),
+                    reps=3, warmup=1)
+    dofs = lm ** 3
+    out.update(ms_per_vcycle=ms, dof_per_s=dofs / (ms * 1e-3), check_ms=check,
+               ms_per_vcycle_rooted_at_lm=rooted)
+    print(f"phase 19 V-cycle: {ms:.4f} ms/V-cycle, {dofs / (ms * 1e-3):.4e} "
+          f"DOF/s at {dofs} DOFs on [{card}]; check {check:.4f} ms; rooted "
+          "at lm (ms): " + ", ".join(f"{k}: {t:.4f}"
+                                     for k, t in rooted.items()))
+    del res
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cg, cg_s, cg_counts = p2_run(torch, mg, hier, cyc, "P2 MG-CG",
+                                 mg.mgcg_solve)
+    cg_mid = float(cg.u[mid, mid, mid])
+    cg_hist = cg.res_hist[:cg.num_iters].double().cpu().numpy().tolist()
+    out["mgcg"] = {"iters": cg.num_iters, "converged": cg.converged,
+                   "solve_s": cg_s, "res_hist": cg_hist, "u_mid": cg_mid,
+                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                   "launches": {k: c for k, c in cg_counts.items() if c}}
+    print(f"phase 19 P2 MG-CG from FMG: {cg.num_iters} iterations, "
+          f"converged={cg.converged} diverged={cg.diverged}, {cg_s:.3f} s, "
+          f"res_hist {cg_hist}, u(1/2,1/2,1/2)={cg_mid!r}, peak "
+          f"{out['mgcg']['peak_gb']:.2f} GB, launches "
+          f"{out['mgcg']['launches']}")
+    if not cg.converged or cg.diverged or not abs(cg_mid - 2.5) < 1e-2:
+        raise AssertionError("P2 513^3 MG-CG did not converge to u = 2.5")
+    del cg, hier
+    torch.cuda.empty_cache()
+
+    # the same solve in f64: whether f32 or the rtol limits max|u - u*|
+    cfg64, cyc64 = p2_config(mg, 5, "float64", 2e-8)
+    h64 = mg.build_p2_hierarchy(cfg64)
+    r64 = mg.solve(h64, cyc64)
+    out["f64"] = {"cycles": r64.num_cycles, "converged": r64.converged,
+                  "res_hist": r64.res_hist[:r64.num_cycles].cpu().numpy()
+                  .tolist(), "u_mid": float(r64.u[mid, mid, mid]),
+                  "max_abs_u_minus_ustar": p2_max_error(torch, r64.u),
+                  "more_cycles": p2_more_cycles(torch, mg, h64, cyc64,
+                                                r64.u)}
+    print(f"phase 19 P2 513^3 f64, rtol 2e-8: {r64.num_cycles} cycles, "
+          f"res_hist {out['f64']['res_hist']}, u(1/2,1/2,1/2)="
+          f"{out['f64']['u_mid']!r}, max|u-u*| "
+          f"{out['f64']['max_abs_u_minus_ustar']:.4e}")
+    if not r64.converged or not abs(out["f64"]["u_mid"] - 2.5) < 1e-2:
+        raise AssertionError("P2 513^3 f64 did not converge to u = 2.5")
+    del h64, r64
+    torch.cuda.empty_cache()
+    return {k: counts[k] for k in KERNELS_P2}, out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=ROOT / "build" / "chip_smoke",
@@ -1577,6 +1987,12 @@ def main() -> int:
         small_var = phase_small_var(torch, np, mg)
         phase = "16 var kappa at 384^3"
         counts_var, var = phase_var(torch, np, mg, card, records)
+        phase = "17 kernels K19-K21"
+        p2_kernels = phase_p2_kernels(torch, np, mg, records)
+        phase = "18 P2 at the 65^3 lattice"
+        small_p2 = phase_small_p2(torch, np, mg)
+        phase = "19 P2 at the 513^3 lattice"
+        counts_p2, p2 = phase_p2(torch, np, mg, card)
     except Exception:
         print(f"FAILED in phase {phase}:")
         traceback.print_exc(file=sys.stdout)
@@ -1587,11 +2003,13 @@ def main() -> int:
                            counts_ref[k] if k == "jacobi_sweep_2d" else
                            counts_s3[k] if k in KERNELS_SLICE3 else
                            counts_var[k] if k in KERNELS_PLANES else
+                           counts_p2[k] if k in KERNELS_P2 else
                            counts_2d[k])
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "build_s": build_s, "main": main,
          "reference": reference, "main_2d": main_2d, "slice3": slice3,
          "tail": tail, "planes": planes, "var_64": small_var, "var": var,
+         "p2_kernels": p2_kernels, "p2_65": small_p2, "p2": p2,
          "kernels": list(records.values())}, indent=1))
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {

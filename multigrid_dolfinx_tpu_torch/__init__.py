@@ -20,7 +20,12 @@ Its slices so far:
   * 3D variable-coefficient diffusion (BASELINE.json config 4's P1 half):
     build_var_hierarchy builds stored coefficient planes on the device,
     with rediscretised or Galerkin (P^T A P) coarse operators, smoothed by
-    multicolour Gauss-Seidel or weighted Jacobi on the planes.
+    multicolour Gauss-Seidel or weighted Jacobi on the planes;
+  * 3D Poisson with P2 elements (BASELINE.json config 4's constant-
+    coefficient P2 path, models.poisson3d_p2): build_p2_hierarchy builds
+    every level as a plane-free parity-table operator on the half-step
+    lattice, smoothed by snap weighted Jacobi, with the same FMG,
+    tolerance loop and MG-CG.
 On a CUDA device the hot ops run as hand-written Hopper kernels
 (ops/cuda, sources in csrc/); on the CPU they run as the kernels' plain
 PyTorch versions.  This package never imports JAX.
@@ -42,7 +47,8 @@ Quick start::
 from .config import CycleSpec, HierarchySpec, ProblemSpec, SolverConfig
 from .mesh import GridLevel, build_grid_hierarchy
 from .solver.hierarchy import (Hierarchy, Level, build_hierarchy,
-                               build_lean_hierarchy, build_var_hierarchy)
+                               build_lean_hierarchy, build_p2_hierarchy,
+                               build_var_hierarchy)
 from .solver.fmg import (SolveResult, error_norm, fmg_solve, residual_norm,
                          resume_solve, solve)
 from .solver.krylov import CGResult, mgcg_solve, solve_mgcg
@@ -63,6 +69,7 @@ __all__ = [
     "Level",
     "build_hierarchy",
     "build_lean_hierarchy",
+    "build_p2_hierarchy",
     "build_var_hierarchy",
     "SolveResult",
     "fmg_solve",

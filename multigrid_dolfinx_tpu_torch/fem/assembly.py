@@ -1,14 +1,16 @@
-"""Ahead-of-time P1 assembly on the Kuhn-tetrahedra grid -> stencil planes
-(numpy, setup path only).
+"""Ahead-of-time P1 and P2 assembly on the Kuhn-tetrahedra grid -> stencil
+planes (numpy, setup path only).
 
-The P1 numpy path of `multigrid_dolfinx_tpu.fem.assembly`, triangles in
-2D and Kuhn tetrahedra in 3D: the operator at node p is
+The numpy path of `multigrid_dolfinx_tpu.fem.assembly`, triangles in 2D
+and Kuhn tetrahedra in 3D: the operator at node p is
 (A u)[p] = sum_k planes[k][p] * u[p + offsets[k]], with dolfinx's
-Dirichlet semantics (symmetric elimination, lifting, set_bc).  Lean
-hierarchies assemble only the tiny prototype and coarsest grids with it
-(the fine levels are built on the device, fem.fast_const); the assembled
-`build_hierarchy` assembles every level.  The native C++ assembler of the
-JAX package (`csrc/`) is not used here.
+Dirichlet semantics (symmetric elimination, lifting, set_bc).  P2 nodes
+(vertices and edge midpoints) live on the half-step lattice of 2n + 1
+points per axis.  Lean hierarchies assemble only the tiny prototype and
+coarsest grids with it (the fine levels are built on the device,
+fem.fast_const and fem.fast_p2); the assembled `build_hierarchy`
+assembles every level.  The native C++ assembler of the JAX package
+(`csrc/`) is not used here.
 """
 from __future__ import annotations
 
@@ -57,17 +59,21 @@ def simplex_vertex_offsets(ndim: int, diagonal: str = "right") -> List[List[Offs
 
 
 class PlaneAccumulator:
-    """Accumulates element-matrix entries into {offset: plane} arrays."""
+    """Accumulates element-matrix entries into {offset: plane} arrays.
+    `stride` is the lattice spacing of the element cells: 1 for P1, the
+    degree for P2 (cell i anchors at lattice point stride * i)."""
 
-    def __init__(self, shape: Tuple[int, ...]):
+    def __init__(self, shape: Tuple[int, ...], stride: int = 1):
         self.shape = shape
+        self.stride = stride
         self.planes: Dict[Offset, np.ndarray] = {}
 
     def add(self, row_voff: Offset, col_voff: Offset, value, n: int):
         off = tuple(c - r for r, c in zip(row_voff, col_voff))
         if off not in self.planes:
             self.planes[off] = np.zeros(self.shape, dtype=np.float64)
-        slab = tuple(slice(r, r + n) for r in row_voff)
+        st = self.stride
+        slab = tuple(slice(r, r + st * (n - 1) + 1, st) for r in row_voff)
         self.planes[off][slab] += value
 
     def finalize(self) -> Tuple[Tuple[Offset, ...], np.ndarray]:
@@ -134,50 +140,68 @@ class AssembledLevel:
     interior: np.ndarray
 
 
+def _element_matrices(ndim: int, h: float, voffs, degree: int):
+    """(stiffness, mass, volume) of one simplex of the cell of size h:
+    closed form for P1, exact quadrature for P2."""
+    verts = np.asarray([[c * h for c in v] for v in voffs])
+    if degree == 1:
+        stiffness, mass, measure, _ = elements.simplex_p1(ndim)
+        return stiffness(*verts), mass(*verts), measure(*verts)
+    return elements.simplex_element_matrices(verts, degree)
+
+
 def assemble_level(grid: GridLevel, problem: ProblemSpec) -> AssembledLevel:
-    """Assemble P1 stiffness, mass and load for one 2D or 3D level with
+    """Assemble stiffness, mass and load for one 2D or 3D level with
     dolfinx's Dirichlet semantics: symmetric elimination with unit
     diagonal, b <- b - A_raw g (apply_lifting), b <- uD on the boundary
-    (set_bc)."""
-    if problem.degree != 1 or problem.kappa is not None:
+    (set_bc).  `grid` is the element grid (n cells per axis); for P2 the
+    returned level lives on its DOF lattice (2n cells per axis)."""
+    if problem.kappa is not None:
         raise NotImplementedError(
-            "the port assembles constant-coefficient P1 only; P2 and "
-            "variable kappa are ROADMAP.md queue 1, items 16 and 14")
+            "the port assembles constant-coefficient operators only; "
+            "variable kappa builds on the device (build_var_hierarchy), "
+            "its host assembly is ROADMAP.md queue 1, item 20")
     ndim, n, h = grid.ndim, grid.n, grid.h
-    shape = grid.shape
-    acc_a = PlaneAccumulator(shape)
-    acc_m = PlaneAccumulator(shape)
+    degree = problem.degree
+    lattice = grid if degree == 1 else GridLevel(level=grid.level,
+                                                 ndim=ndim, n=degree * n)
+    shape = lattice.shape
+    acc_a = PlaneAccumulator(shape, stride=degree)
+    acc_m = PlaneAccumulator(shape, stride=degree)
     b = np.zeros(shape, dtype=np.float64)
     rhs_fn = problem.resolved_rhs()
-    stiffness, mass, measure, (qbary, qw) = elements.simplex_p1(ndim)
+    node_fn = elements.simplex_nodes(ndim, degree)
+    _, _, _, (qbary, qw) = elements.simplex_p1(ndim)
+    phi_q = elements.nodal_basis_at(qbary, degree)        # (Q, nb)
     cell_axes = [np.arange(n, dtype=np.float64) * h for _ in range(ndim)]
     cell_origin = np.meshgrid(*cell_axes, indexing="ij")
 
     for voffs in simplex_vertex_offsets(ndim, problem.diagonal):
         verts = np.asarray([[c * h for c in v] for v in voffs])
-        K = stiffness(*verts)
-        M = mass(*verts)
-        vol = measure(*verts)
-        for a in range(ndim + 1):
-            for bb in range(ndim + 1):
-                acc_a.add(voffs[a], voffs[bb], K[a, bb], n)
-                acc_m.add(voffs[a], voffs[bb], M[a, bb], n)
+        K, M, vol = _element_matrices(ndim, h, voffs, degree)
+        noffs = node_fn(voffs)
+        nb = len(noffs)
+        for a in range(nb):
+            for bb in range(nb):
+                acc_a.add(noffs[a], noffs[bb], K[a, bb], n)
+                acc_m.add(noffs[a], noffs[bb], M[a, bb], n)
         for q in range(len(qw)):
             xq_local = qbary[q] @ verts
             fq = rhs_fn(*[co + xo for co, xo in zip(cell_origin, xq_local)])
-            for a in range(ndim + 1):
-                slab = tuple(slice(r, r + n) for r in voffs[a])
-                b[slab] += vol * qw[q] * qbary[q, a] * fq
+            for a in range(nb):
+                slab = tuple(slice(r, r + degree * (n - 1) + 1, degree)
+                             for r in noffs[a])
+                b[slab] += vol * qw[q] * phi_q[q, a] * fq
 
     offsets, a_raw = acc_a.finalize()
     m_offsets, m_planes = acc_m.finalize()
-    interior = grid.interior_mask()
+    interior = lattice.interior_mask()
     boundary = ~interior
-    g = np.where(boundary, problem.resolved_exact()(*grid.coords()), 0.0)
+    g = np.where(boundary, problem.resolved_exact()(*lattice.coords()), 0.0)
     b = b - stencil_apply_np(offsets, a_raw, g)
     b = np.where(boundary, g, b)
     return AssembledLevel(
-        grid=grid, offsets=offsets,
+        grid=lattice, offsets=offsets,
         A_planes=eliminate_dirichlet_np(offsets, a_raw, interior),
         A_raw_planes=a_raw, M_offsets=m_offsets, M_planes=m_planes,
         b=b, g=g, interior=interior,

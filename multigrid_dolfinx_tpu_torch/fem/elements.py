@@ -1,9 +1,9 @@
-"""P1 triangle and tetrahedron element matrices and quadrature (numpy,
-setup path only).
+"""Simplex element matrices and quadrature (numpy, setup path only).
 
-The P1 subset of `multigrid_dolfinx_tpu.fem.elements` that the 2D and 3D
-assembly and norms use; the P2 pieces come with the P2 slice (ROADMAP.md
-queue 1, item 16).
+A copy of `multigrid_dolfinx_tpu.fem.elements`: the closed-form P1
+triangle and tetrahedron matrices that the P1 assembly and norms use, and
+the generic nodal-simplex pieces (P1 / P2 by quadrature) that the P2
+assembly, its template and its error norm use.
 """
 from __future__ import annotations
 
@@ -115,3 +115,89 @@ def simplex_p1(ndim: int):
     if ndim == 3:
         return p1_tet_stiffness, p1_tet_mass, tet_volume, tet_quadrature()
     raise ValueError(f"ndim must be 2 or 3, got {ndim}")
+
+
+# ----------------------------------------------------------------------
+# Generic nodal simplex elements (P1 / P2) via quadrature
+# ----------------------------------------------------------------------
+
+def simplex_nodes(ndim: int, degree: int):
+    """Element node positions in lattice units (vertices scaled by
+    `degree`, then the edge midpoints i < j for P2), as a function of the
+    simplex's vertex-offset list."""
+    if degree == 1:
+        return lambda voffs: [tuple(degree * c for c in v) for v in voffs]
+
+    def nodes(voffs):
+        vs = [tuple(degree * c for c in v) for v in voffs]
+        out = list(vs)
+        nv = len(vs)
+        for i in range(nv):
+            for j in range(i + 1, nv):
+                out.append(tuple((a + b) // 2 for a, b in zip(vs[i], vs[j])))
+        return out
+
+    return nodes
+
+
+def _edge_pairs(nv: int):
+    return [(i, j) for i in range(nv) for j in range(i + 1, nv)]
+
+
+def nodal_basis_at(bary: np.ndarray, degree: int) -> np.ndarray:
+    """Values of the nodal basis at barycentric points bary (Q, d+1):
+    (Q, nb), node order [vertices..., midpoints (i < j)...] as
+    simplex_nodes."""
+    Q, nv = bary.shape
+    if degree == 1:
+        return bary.copy()
+    cols = [bary[:, i] * (2.0 * bary[:, i] - 1.0) for i in range(nv)]
+    for (i, j) in _edge_pairs(nv):
+        cols.append(4.0 * bary[:, i] * bary[:, j])
+    return np.stack(cols, axis=1)
+
+
+def nodal_basis_grad_bary(bary: np.ndarray, degree: int) -> np.ndarray:
+    """d(phi_a)/d(lambda_k) at barycentric points: (Q, nb, d+1)."""
+    Q, nv = bary.shape
+    if degree == 1:
+        out = np.zeros((Q, nv, nv))
+        for i in range(nv):
+            out[:, i, i] = 1.0
+        return out
+    nb = nv + len(_edge_pairs(nv))
+    out = np.zeros((Q, nb, nv))
+    for i in range(nv):
+        out[:, i, i] = 4.0 * bary[:, i] - 1.0
+    for a, (i, j) in enumerate(_edge_pairs(nv)):
+        out[:, nv + a, i] = 4.0 * bary[:, j]
+        out[:, nv + a, j] = 4.0 * bary[:, i]
+    return out
+
+
+def barycentric_gradients(verts: np.ndarray) -> np.ndarray:
+    """grad(lambda_k) of the simplex with vertex rows `verts` ((d+1, d))."""
+    d = verts.shape[1]
+    A = np.hstack([np.ones((d + 1, 1)), verts])
+    C = np.linalg.inv(A)
+    return C[1:, :].T        # (d+1, d)
+
+
+def simplex_element_matrices(verts: np.ndarray, degree: int,
+                             kappa: float = 1.0):
+    """(stiffness, mass, volume) of a P`degree` simplex by quadrature
+    (exact: the integrands have degree <= 4, the rules 4 and 5)."""
+    d = verts.shape[1]
+    if d == 2:
+        qb, qw = triangle_quadrature()
+        vol = triangle_area(*verts)
+    else:
+        qb, qw = tet_quadrature()
+        vol = tet_volume(*verts)
+    gl = barycentric_gradients(verts)            # (d+1, d)
+    phi = nodal_basis_at(qb, degree)             # (Q, nb)
+    dphi = nodal_basis_grad_bary(qb, degree)     # (Q, nb, d+1)
+    grads = dphi @ gl                            # (Q, nb, d)
+    K = vol * np.einsum("q,qad,qbd->ab", qw, grads, grads)
+    M = vol * np.einsum("q,qa,qb->ab", qw, phi, phi)
+    return kappa * K, M, vol

@@ -1,10 +1,10 @@
 """Problem families of the port: 2D Poisson (the reference's problem), 3D
-Poisson (the main path) and 3D variable-coefficient diffusion with
-Galerkin coarse operators.
+Poisson (the main path), 3D variable-coefficient diffusion with Galerkin
+coarse operators and 3D Poisson with P2 elements.
 
-The other constructors of `multigrid_dolfinx_tpu.models` (P2, 2D variable
-coefficient, screened) belong to later slices of the port (ROADMAP.md
-queue 1, items 16 and 20, queue 2, item 13).
+The other constructors of `multigrid_dolfinx_tpu.models` (2D P2, 2D
+variable coefficient, screened) belong to later slices of the port
+(ROADMAP.md queue 1, items 20 and 21, queue 2, item 13).
 """
 from __future__ import annotations
 
@@ -82,5 +82,33 @@ def variable_coefficient_3d(
             coarse_operator="galerkin",
         ),
         cycle=cycle if cycle is not None else CycleSpec(nu1=2, nu2=2),
+        dtype=dtype,
+    )
+
+
+def poisson3d_p2(
+    finest_level: int = 1,
+    coarsest_level: int = 0,
+    coarsest_elements: int = 4,
+    dtype: str = "float32",
+    cycle: Optional[CycleSpec] = None,
+    coarse_operator: str = "rediscretize",
+) -> SolverConfig:
+    """3D Poisson with P2 elements on the Kuhn-tetrahedra cube (BASELINE.json
+    config 4's 3D form): u* = 1 + x^2 + 2y^2 + 3z^2 lies in the P2 space,
+    f = -12.  DOFs live on the half-step lattice ((2n+1)^3 points at n^3
+    elements); build with build_p2_hierarchy, whose levels are all
+    rediscretised plane-free parity-table operators."""
+    return SolverConfig(
+        problem=ProblemSpec(ndim=3, degree=2, rhs_const=-12.0),
+        hierarchy=HierarchySpec(
+            coarsest_elements=coarsest_elements,
+            coarsest_level=coarsest_level,
+            finest_level=finest_level,
+            coarse_operator=coarse_operator,
+        ),
+        cycle=cycle if cycle is not None else CycleSpec(
+            nu1=2, nu2=2, smoother="jacobi", restriction="pt",
+        ),
         dtype=dtype,
     )

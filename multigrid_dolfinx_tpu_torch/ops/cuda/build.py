@@ -22,7 +22,8 @@ PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
 SOURCES = ("stencil3d.cu", "stencil3d_cheby.cu", "stencil3d_tail.cu",
-           "stencil3d_norm.cu", "stencil3d_planes.cu", "stencil2d.cu")
+           "stencil3d_norm.cu", "stencil3d_planes.cu", "stencil3d_p2.cu",
+           "stencil2d.cu")
 HEADERS = ("stencil3d.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -44,6 +45,12 @@ SIGNATURES = {
     "mg_planes_jacobi_f64": "ppppipiiiddp",
     "mg_planes_gs_sweep_f32": "pppipiiiip",
     "mg_planes_gs_sweep_f64": "pppipiiiip",
+    "mg_p2_residual_f32": "pppppipip",
+    "mg_p2_residual_f64": "pppppipip",
+    "mg_p2_jacobi_f32": "pppppipiiffp",
+    "mg_p2_jacobi_f64": "pppppipiiddp",
+    "mg_p2_mass_quad_f32": "pppppipiip",
+    "mg_p2_mass_quad_f64": "pppppipiip",
     "mg_prolong_linear_f32": "pppiip",
     "mg_prolong_linear_f64": "pppiip",
     "mg_residual_f32": "pppiffp",

@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 from .cuda import (stencil2d, stencil3d, stencil3d_cheby, stencil3d_norm,
-                   stencil3d_planes, stencil3d_tail)
+                   stencil3d_p2, stencil3d_planes, stencil3d_tail)
 from .cuda.stencil3d_planes import planes3_colors  # noqa: F401  (re-export)
 from .operators import StencilOperator
 
@@ -133,6 +133,31 @@ def planes3_gs_sweep(v, f, planes, offsets):
     if _on_cuda(v):
         return stencil3d_planes.planes3_gs_sweep(v, f, planes, offsets)
     return stencil3d_planes.planes3_gs_sweep_ref(v, f, planes, offsets)
+
+
+def p2_residual(v, f, tables, offsets):
+    if _on_cuda(v):
+        return stencil3d_p2.p2_residual(v, f, tables, offsets)
+    return stencil3d_p2.p2_residual_ref(v, f, tables, offsets)
+
+
+def p2_jacobi_sweep(v, f, tables, offsets, w, out=None):
+    if _on_cuda(v):
+        return stencil3d_p2.p2_jacobi_sweep(v, f, tables, offsets, w, out)
+    return stencil3d_p2.p2_jacobi_sweep_ref(v, f, tables, offsets, w, out)
+
+
+def p2_mass_quad(r, tables, offsets):
+    if _on_cuda(r):
+        return stencil3d_p2.p2_mass_quad(r, tables, offsets)
+    return stencil3d_p2.p2_mass_quad_ref(r, tables, offsets)
+
+
+def p2_residual_mass_quad(v, f, a_tables, a_offsets, m_tables, m_offsets):
+    """q = r^T M r with r = f - A v: K19, then K21 (the JAX package's
+    stencil3d_p2.p2_residual_mass_quad)."""
+    return p2_mass_quad(p2_residual(v, f, a_tables, a_offsets), m_tables,
+                        m_offsets)
 
 
 def residual_tet_quad(v, f, lm, wc, woff, diagonal):

@@ -10,7 +10,12 @@ The subset of `multigrid_dolfinx_tpu.ops.operators` the port runs:
     sum_k planes[k][p] u[p + off_k] over in-box neighbours;
   * the boundary-class-table operator, the zero-memory form of the
     consistent P1 mass matrix, and its `quadratic_form` / `mass_norm`,
-    the plain FEM-L2 residual norm.
+    the plain FEM-L2 residual norm;
+  * the parity-table operator of constant-coefficient P2 on its half-step
+    lattice: the weight of offset k at node p is parity_tables[k][class
+    (p)] with per-axis classes {low face, even interior, odd interior,
+    high face}, O(K 4^d) numbers for the whole operator (the stiffness
+    Dirichlet-eliminated, the mass raw).
 
 Storage is the logical box itself, contiguous and unpadded, so every
 shifted read pads with zeros explicitly (the TPU kernels let rolls wrap
@@ -64,6 +69,27 @@ def class_index(shape: Tuple[int, ...], lm: int, device) -> torch.Tensor:
     return cls.expand(shape)
 
 
+def parity_axis_class(n: int, lm: int, device) -> torch.Tensor:
+    """Per-axis parity class: 0 at index 0, 3 at index lm-1, 1 at even
+    and 2 at odd indices between."""
+    i = torch.arange(n, device=device)
+    return torch.where(i == 0, 0, torch.where(
+        i == lm - 1, 3, torch.where(i % 2 == 0, 1, 2)))
+
+
+def parity_gather(table: torch.Tensor, shape: Tuple[int, ...],
+                  lm: int) -> torch.Tensor:
+    """table[class(p)] at every node p of `shape`, for a flat (4^d,) class
+    table, through per-axis class views (no grid-sized index array)."""
+    d = len(shape)
+    idx = []
+    for axis, n in enumerate(shape):
+        view = [1] * d
+        view[axis] = n
+        idx.append(parity_axis_class(n, lm, table.device).view(view))
+    return table.view((4,) * d)[tuple(idx)]
+
+
 def _shifted(up: torch.Tensor, off: Offset, shape, r: int) -> torch.Tensor:
     return up[tuple(slice(r + o, r + o + s) for o, s in zip(off, shape))]
 
@@ -109,8 +135,15 @@ class StencilOperator:
     u[p + off_k], the planes always Dirichlet-eliminated (bc rows unit,
     bc columns zero).  class-table mode
     (`class_tables` set): the weight of offset k at node p is
-    class_tables[k][class(p)], reads unmasked — the consistent mass matrix; `uniform_p1_mass` certifies that it is the P1
-    mass of the uniform Kuhn grid with that diagonal."""
+    class_tables[k][class(p)], reads unmasked — the consistent mass
+    matrix; `uniform_p1_mass` certifies that it is the P1 mass of the
+    uniform Kuhn grid with that diagonal.  parity-table mode
+    (`parity_tables` set, (K, 4^d)): the weight of offset k at node p is
+    parity_tables[k][parity class(p)] (parity_gather); boundary_mode
+    'identity' is the Dirichlet-eliminated stiffness (reads
+    interior-masked, non-interior rows the identity), 'raw' the
+    un-eliminated operator (reads and rows as they are inside the box,
+    the consistent P2 mass)."""
 
     offsets: Tuple[Offset, ...]
     logical_m: int
@@ -119,6 +152,8 @@ class StencilOperator:
     class_tables: Optional[torch.Tensor] = None
     uniform_p1_mass: Optional[str] = None
     planes: Optional[torch.Tensor] = None
+    parity_tables: Optional[torch.Tensor] = None
+    boundary_mode: str = "identity"
 
     @property
     def ndim(self) -> int:
@@ -146,12 +181,25 @@ class StencilOperator:
         return self.offsets.index((0,) * self.ndim)
 
     def diag(self) -> torch.Tensor:
-        """The centre plane of a planes operator."""
+        """The centre plane of a planes operator; the gathered centre
+        weight of a parity operator (1 on identity rows)."""
+        if self.parity_tables is not None:
+            d = parity_gather(self.parity_tables[self.center_index()],
+                              self.shape, self.logical_m)
+            if self.boundary_mode == "identity":
+                interior = box_interior_mask(self.shape, self.logical_m,
+                                             d.device)
+                return torch.where(interior, d, 1.0)
+            return d
         return self.planes[self.center_index()]
 
     def dinv(self, dtype, device=None) -> torch.Tensor:
-        """1 / diag: from the centre plane of a planes operator (1 where
-        it is 0), else from the const weight and the interior mask."""
+        """1 / diag: from the centre plane of a planes operator or the
+        diagonal of a parity one (1 where it is 0), else from the const
+        weight and the interior mask."""
+        if self.parity_tables is not None:
+            d = self.diag()
+            return 1.0 / torch.where(d == 0.0, 1.0, d)
         if self.planes is not None:
             return planes_dinv(self.planes, self.center_index())
         w = self.const_weights[self.center_index()]
@@ -185,7 +233,23 @@ class StencilOperator:
             out = term if out is None else out + term
         return out
 
+    def _apply_parity(self, u: torch.Tensor) -> torch.Tensor:
+        lm = self.logical_m
+        identity = self.boundary_mode == "identity"
+        interior = box_interior_mask(u.shape, lm, u.device)
+        src = torch.where(interior, u, 0.0) if identity else u
+        r = self.radius
+        up = _pad(src, r)
+        out = None
+        for k, off in enumerate(self.offsets):
+            w = parity_gather(self.parity_tables[k], u.shape, lm)
+            term = w * _shifted(up, off, u.shape, r)
+            out = term if out is None else out + term
+        return torch.where(interior, out, u) if identity else out
+
     def apply(self, u: torch.Tensor) -> torch.Tensor:
+        if self.parity_tables is not None:
+            return self._apply_parity(u)
         if self.class_tables is not None:
             return self._apply_class_tables(u)
         if self.is_const:

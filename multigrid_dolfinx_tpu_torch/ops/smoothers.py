@@ -1,17 +1,20 @@
 """Smoothers of the port: red-black Gauss-Seidel, weighted Jacobi and
 Chebyshev polynomial smoothing, on the const-7 (3D) and const-5 (2D)
 operators; multicolour Gauss-Seidel and weighted Jacobi on 3D
-stored-planes operators.
+stored-planes operators; weighted Jacobi on the 3D P2 parity operator.
 
 Each sweep goes through ops.dispatch (a kernel on CUDA, its plain version
 on the CPU): 3D RB-GS through K1, 3D Jacobi through K11, 3D Chebyshev
 through the fused momentum-form step K12; 2D RB-GS through K6, 2D Jacobi
 through K5, 2D Chebyshev in p-form on the residual K7; on planes,
-multicolour GS through K17 and Jacobi through K16.  Contracts the
-error norm, the FMG ramp and the reference's cycle counts rely on: after
-every GS sweep, boundary rows hold exactly f; Jacobi mixes them, (1-w) v
-+ w f (the reference's jacobiRelaxation with identity rows); Chebyshev
-adds b (f - v) there (dinv = 1 on identity rows), as the JAX package does.
+multicolour GS through K17 and Jacobi through K16; on P2, Jacobi
+through K20.  Contracts the error norm, the FMG ramp and the reference's
+cycle counts rely on: after every GS sweep, boundary rows hold exactly f;
+Jacobi mixes them, (1-w) v + w f (the reference's jacobiRelaxation with
+identity rows), except on P2, whose Jacobi snaps them to f on every sweep
+(the JAX package's snap contract: the residual then vanishes on every
+face at each post-sweep check); Chebyshev adds b (f - v) there (dinv = 1
+on identity rows), as the JAX package does.
 """
 from __future__ import annotations
 
@@ -153,10 +156,31 @@ def smooth_planes(sm: SmootherData, A: StencilOperator, v: torch.Tensor,
     return v
 
 
+def smooth_p2(sm: SmootherData, A: StencilOperator, v: torch.Tensor,
+              f: torch.Tensor, nsweeps: int, kind: str) -> torch.Tensor:
+    """Snap weighted-Jacobi sweeps on the P2 parity operator (K20), out of
+    place in two buffers; the caller's v is never written."""
+    if kind == "chebyshev":
+        raise NotImplementedError(
+            "Chebyshev smoothing on P2 needs the power-iteration lmax "
+            "(fast_p2.py device_p2_lmax), ROADMAP.md queue 1, item 19")
+    if kind != "jacobi":
+        raise NotImplementedError(
+            "multicolour (27-colour) Gauss-Seidel on P2 is ROADMAP.md "
+            "queue 1, item 22")
+    bufs = [torch.empty_like(v) for _ in range(min(nsweeps, 2))]
+    for k in range(nsweeps):
+        v = dispatch.p2_jacobi_sweep(v, f, A.parity_tables, A.offsets,
+                                     sm.omega, out=bufs[k % 2])
+    return v
+
+
 def smooth(sm: SmootherData, A: StencilOperator, v: torch.Tensor,
            f: torch.Tensor, nsweeps: int, kind: str) -> torch.Tensor:
     if nsweeps <= 0:
         return v
+    if A.parity_tables is not None:
+        return smooth_p2(sm, A, v, f, nsweeps, kind)
     if A.planes is not None:
         return smooth_planes(sm, A, v, f, nsweeps, kind)
     lm = A.logical_m

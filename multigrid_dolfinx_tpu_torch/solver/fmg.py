@@ -8,7 +8,8 @@ r = f - A v, sqrt(r^T M r) runs as kernel K4 in one pass over v and f in
 3D; in 2D it is the residual kernel K7 and the plain class-table mass
 norm, as the JAX package computes it (it has no fused 2D norm kernel),
 and on a stored-planes finest level the residual kernel K15 and the
-plain class-table norm, as the JAX package falls back to.
+plain class-table norm, as the JAX package falls back to; on a P2 parity
+finest level the residual K19 and the raw mass quadratic form K21.
 """
 from __future__ import annotations
 
@@ -47,7 +48,7 @@ def error_norm(hier: Hierarchy, u: torch.Tensor) -> torch.Tensor:
     point: sum_s vol_s sum_q w_q (u_h(x_q) - u*(x_q))^2, with u*(x_q)
     evaluated on the fly from cell indices."""
     eq = hier.err_quad
-    nc = eq.ncells
+    nc, st = eq.ncells, eq.stride
     iotas = []
     for axis in range(u.ndim):
         view = [1] * u.ndim
@@ -59,7 +60,8 @@ def error_norm(hier: Hierarchy, u: torch.Tensor) -> torch.Tensor:
         for q, vw in enumerate(eq.vw[s]):
             interp = None
             for a, voff in enumerate(voffs):
-                slab = tuple(slice(o, o + nc) for o in voff)
+                slab = tuple(slice(o, o + st * (nc - 1) + 1, st)
+                             for o in voff)
                 term = eq.lambdas[s][q][a] * u[slab]
                 interp = term if interp is None else interp + term
             xq = [io + xo for io, xo in zip(iotas, eq.xq_local[s][q])]
@@ -72,9 +74,17 @@ def error_norm(hier: Hierarchy, u: torch.Tensor) -> torch.Tensor:
 def check_norm(hier: Hierarchy, v: torch.Tensor,
                f: torch.Tensor) -> torch.Tensor:
     """The per-cycle check sqrt(r^T M r), r = f - A v: through kernel K4
-    on a 3D const-7 level; through the residual kernel (K7 in 2D, K15 on
-    planes) and the class-table norm otherwise; in v's dtype."""
+    on a 3D const-7 level; through K19 and K21 on a P2 parity level
+    (exact at face rows too, so it also gives ||b||_M of the zero
+    iterate); through the residual kernel (K7 in 2D, K15 on planes) and
+    the class-table norm otherwise; in v's dtype."""
     lv = hier.finest
+    if lv.A.parity_tables is not None:
+        M = hier.M_fine
+        q = dispatch.p2_residual_mass_quad(v, f, lv.A.parity_tables,
+                                           lv.A.offsets, M.parity_tables,
+                                           M.offsets)
+        return torch.sqrt(torch.clamp(q, min=0.0)).to(v.dtype)
     if v.ndim == 2 or lv.A.planes is not None:
         return residual_norm(hier, compute_residual(lv, v, f))
     wc, woff = dispatch.const7_weights(lv.A)

@@ -8,7 +8,9 @@ for variable kappa in 3D, `build_var_hierarchy` builds every level's
 coefficient planes, b and g on the device (fem.fast_var).  Frozen
 dataclasses take the place of the JAX pytrees; every tensor lives on the
 device given to the build function, the CUDA card unless the caller asks
-for the CPU.  Storage is the logical (n+1)^d box,
+for the CPU; for constant-coefficient P2 in 3D, `build_p2_hierarchy`
+builds every level as a plane-free parity-table operator with b and g on
+the device (fem.fast_p2).  Storage is the logical (n+1)^d box,
 contiguous and unpadded, so there is no TPU tile padding, no cropped
 layout and no precomputed full-layout reference norm.
 """
@@ -24,7 +26,7 @@ from ..config import SolverConfig
 from ..fem import assembly as fem_assembly
 from ..fem.fast_const import (build_const_template, device_level_arrays,
                               mass_class_tables)
-from ..fem import fast_var
+from ..fem import fast_p2, fast_var
 from ..fem.norms import ErrorQuad, error_quadrature
 from ..mesh import build_grid_hierarchy
 from ..ops.coarse import CoarseSolver, build_coarse_solver
@@ -97,16 +99,38 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def check_problem(config: SolverConfig, var: bool = False) -> None:
+def check_problem(config: SolverConfig, var: bool = False,
+                  p2: bool = False) -> None:
     """Raise for problems outside the port's slices.  var=True checks for
     build_var_hierarchy (3D P1, variable kappa, constant RHS, either
-    coarse operator, reaction allowed), else for the constant-coefficient
-    builds."""
+    coarse operator, reaction allowed), p2=True for build_p2_hierarchy
+    (3D P2, constant coefficient and RHS, rediscretised), else for the
+    constant-coefficient P1 builds."""
     p, hs = config.problem, config.hierarchy
-    if p.degree != 1:
-        raise NotImplementedError("P2 is ROADMAP.md queue 1, item 16")
     if config.dtype not in DTYPES:
         raise ValueError(f"dtype must be one of {sorted(DTYPES)}")
+    if p2:
+        if p.degree != 2:
+            raise ValueError("build_p2_hierarchy is the P2 path; P1 builds "
+                             "with build_lean_hierarchy")
+        if p.ndim != 3:
+            raise NotImplementedError("2D P2 is ROADMAP.md queue 1, item 21")
+        if (p.kappa is not None or p.reaction != 0.0
+                or hs.coarse_operator != "rediscretize"):
+            raise NotImplementedError(
+                "P2 with variable kappa, a reaction term or Galerkin "
+                "coarse operators goes through the host assembler, "
+                "ROADMAP.md queue 1, item 20")
+        if p.rhs_const is None:
+            raise NotImplementedError(
+                "the device P2 build needs a constant RHS (rhs_const); "
+                "other right-hand sides go through the host assembler, "
+                "ROADMAP.md queue 1, item 20")
+        return
+    if p.degree != 1:
+        raise NotImplementedError(
+            "P2 builds with build_p2_hierarchy (3D, ROADMAP.md queue 1, "
+            "item 16); 2D P2 is ROADMAP.md queue 1, item 21")
     if var:
         if p.kappa is None:
             raise ValueError("build_var_hierarchy is the variable-"
@@ -330,5 +354,79 @@ def build_var_hierarchy(config: SolverConfig, device="cuda") -> Hierarchy:
         torch.as_tensor(m_tables * (g_f.h * 4.0) ** g_f.ndim, dtype=dtype,
                         device=device),
         g_f.n, problem.diagonal)
+    return Hierarchy(levels=tuple(levels), coarse=coarse, M_fine=M_fine,
+                     err_quad=error_quadrature(g_f, problem))
+
+
+def check_p2_cycle(config: SolverConfig) -> None:
+    """The P2 smoother is snap-Jacobi (K20): Chebyshev needs the
+    power-iteration lmax, multicolour GS a kernel of its own."""
+    smoother = config.cycle.smoother
+    if smoother == "chebyshev":
+        raise NotImplementedError(
+            "smoother 'chebyshev' on P2 needs the power-iteration lmax "
+            "(fast_p2.py device_p2_lmax), ROADMAP.md queue 1, item 19")
+    if smoother == "rbgs":
+        raise NotImplementedError(
+            "smoother 'rbgs' on P2 (27-colour mod-3 Gauss-Seidel) is "
+            "ROADMAP.md queue 1, item 22")
+
+
+def p2_level(offsets, grid, b: torch.Tensor, g: torch.Tensor,
+             config: SolverConfig, tables: torch.Tensor) -> Level:
+    """A P2 level of the element grid `grid`: the parity stiffness of
+    these tables on the (2n+1)^3 lattice (Level.n = 2n lattice
+    intervals); lmax is the JAX build's 2.0 (only Chebyshev reads it)."""
+    lm = 2 * grid.n + 1
+    A = StencilOperator(offsets=tuple(map(tuple, offsets)), logical_m=lm,
+                        grid_shape=(lm,) * grid.ndim, parity_tables=tables)
+    sm = SmootherData(lmax=2.0, omega=config.cycle.omega,
+                      cheby_degree=config.cycle.cheby_degree)
+    return Level(A=A, sm=sm, b=b, g=g, n=2 * grid.n, level=grid.level)
+
+
+def p2_mass_operator(offsets, grid, tables: torch.Tensor) -> StencilOperator:
+    """The finest level's raw consistent P2 mass in parity-table form."""
+    lm = 2 * grid.n + 1
+    return StencilOperator(offsets=tuple(map(tuple, offsets)), logical_m=lm,
+                           grid_shape=(lm,) * grid.ndim,
+                           parity_tables=tables, boundary_mode="raw")
+
+
+def build_p2_hierarchy(config: SolverConfig, device="cuda") -> Hierarchy:
+    """Hierarchy for constant-coefficient 3D P2 on `device` (the CUDA card
+    by default; without one this raises).  Every level is a plane-free
+    parity-table operator (fem.fast_p2): the (51, 64) stiffness table of
+    the n0 = 4 prototype scaled by h in f64 and cast to the dtype, with b
+    and g built on the device; coarse levels are rediscretised.  The
+    coarsest level's assembled P2 matrix is factorised on the host (f64);
+    the mass operator is the raw (65, 64) parity table of the finest
+    level, so the per-cycle check K19 + K21 is exact on face rows too
+    and no zero-iterate norm is precomputed.  Stores b and g per level
+    and nothing else of grid size."""
+    check_problem(config, p2=True)
+    check_p2_cycle(config)
+    device = resolve_device(device)
+    dtype = DTYPES[config.dtype]
+    problem = config.problem
+    ndim = problem.ndim
+    grids = build_grid_hierarchy(config.hierarchy, ndim=ndim)
+    template = fast_p2.build_p2_template(problem)
+    levels = []
+    for g in grids:
+        b, gdir = fast_p2.device_p2_level_arrays(template, g.n, problem,
+                                                 dtype, device)
+        tables = fast_p2.level_tables(template.a_unit, g.h ** (ndim - 2),
+                                      dtype, device)
+        levels.append(p2_level(template.offsets, g, b, gdir, config,
+                               tables))
+    asm0 = fem_assembly.assemble_level(grids[0], problem)
+    coarse = build_coarse_solver(asm0.offsets, asm0.A_planes,
+                                 kind=config.cycle.coarse_solver,
+                                 device=device)
+    g_f = grids[-1]
+    M_fine = p2_mass_operator(
+        template.m_offsets, g_f,
+        fast_p2.level_tables(template.m_unit, g_f.h ** ndim, dtype, device))
     return Hierarchy(levels=tuple(levels), coarse=coarse, M_fine=M_fine,
                      err_quad=error_quadrature(g_f, problem))

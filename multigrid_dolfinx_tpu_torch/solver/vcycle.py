@@ -11,7 +11,9 @@ fused coarse tail: the down leg (K13), the coarse solve and the up leg
 (K14), two launches in all.  A 3D stored-planes level (variable kappa,
 Galerkin) runs ν1 sweeps (K17 multicolour GS or K16 Jacobi), the
 residual (K15) and its P^T restriction (K18) in two steps, the
-recursion, the correction through K3 and ν2 sweeps.  In 2D a level runs
+recursion, the correction through K3 and ν2 sweeps; a 3D P2 parity level
+the same with K20 snap-Jacobi sweeps and the residual K19.  In 2D a
+level runs
 ν1 sweeps (K5 Jacobi, K6 red-black or Chebyshev on K7), the residual
 (K7), its restriction (K8 for 'pt', plain injection otherwise), the
 recursion, v + P(vc) through K9 (the JAX package has no fused 2D
@@ -45,8 +47,11 @@ def check_slice(spec: CycleSpec) -> None:
 
 def compute_residual(level, v: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
     """r = f - A v: kernel K7 in 2D, K10 in 3D (boundary rows f - v), K15
-    on 3D stored planes."""
+    on 3D stored planes, K19 on the P2 parity operator."""
     lm = level.n + 1
+    if level.A.parity_tables is not None:
+        return dispatch.p2_residual(v, f, level.A.parity_tables,
+                                    level.A.offsets)
     if level.A.planes is not None:
         return dispatch.planes3_residual(v, f, level.A.planes,
                                          level.A.offsets)
@@ -85,9 +90,10 @@ def prolong_level(vc: torch.Tensor, fine_level,
 def _coarse_rhs(lv, lv_c, v, f, spec: CycleSpec) -> torch.Tensor:
     """The coarse right-hand side from the smoothed v: P^T (f - A v) in
     one pass over v and f (K2) on const-7 levels, residual then
-    restriction in 2D, on planes levels (K15, K18) and for injection."""
+    restriction in 2D, on planes levels (K15, K18), on P2 parity levels
+    (K19, K18) and for injection."""
     if (v.ndim == 2 or spec.restriction != "pt"
-            or lv.A.planes is not None):
+            or dispatch.const7_weights(lv.A) is None):
         return restrict_level(compute_residual(lv, v, f), lv, lv_c,
                               spec.restriction)
     wc, woff = dispatch.const7_weights(lv.A)

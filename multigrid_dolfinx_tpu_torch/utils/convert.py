@@ -1,8 +1,8 @@
 """Carry a hierarchy's state across from plain numpy arrays.
 
 `hierarchy_from_numpy` rebuilds the port's Hierarchy from the state of a
-JAX-package hierarchy (2D or 3D, lean or assembled, or the 3D
-variable-kappa build) written out as numpy arrays and Python scalars, so
+JAX-package hierarchy (2D or 3D, lean or assembled, the 3D variable-kappa
+build or the 3D P2 build) written out as numpy arrays and Python scalars, so
 both packages can run from the same state.
 It imports nothing of JAX; the caller does the jax -> numpy step, e.g.
 
@@ -21,7 +21,11 @@ It imports nothing of JAX; the caller does the jax -> numpy step, e.g.
     }
 
 with `dinv` the stored 1/diag A of an assembled hierarchy (None for a
-lean one, whose const operator gives it).  A level of a variable-kappa
+lean one, whose const operator gives it).  A level of a P2 hierarchy
+(the config has degree 2) carries `"parity_tables":
+np.asarray(lv.A.parity_tables)` and its `offsets` (and may carry its
+lattice size `"lm"`), and the mass comes as `"m_parity_tables"` and
+`"m_offsets"` instead of `class_tables`.  A level of a variable-kappa
 hierarchy carries `"planes": np.asarray(lv.A.planes)` and its `offsets`
 instead of `weights` (the config then has kappa set); a `dinv` it
 carries is not read, the centre plane gives it.  The Chebyshev degree is the
@@ -41,8 +45,9 @@ from ..fem.fast_const import mass_class_tables
 from ..fem.norms import error_quadrature
 from ..mesh import GridLevel
 from ..ops.coarse import coarse_solver_from_numpy
-from ..solver.hierarchy import (DTYPES, Hierarchy, check_problem,
-                                check_var_cycle, const_level, mass_operator,
+from ..solver.hierarchy import (DTYPES, Hierarchy, check_p2_cycle,
+                                check_problem, check_var_cycle, const_level,
+                                mass_operator, p2_level, p2_mass_operator,
                                 planes_level, resolve_device)
 
 
@@ -51,9 +56,12 @@ def hierarchy_from_numpy(arrays: dict, config: SolverConfig,
     """The port's Hierarchy on `device` (the CUDA card by default) from
     numpy state (see module doc)."""
     var = config.problem.kappa is not None
-    check_problem(config, var=var)
+    p2 = config.problem.degree == 2
+    check_problem(config, var=var, p2=p2)
     if var:
         check_var_cycle(config)
+    if p2:
+        check_p2_cycle(config)
     device = resolve_device(device)
     dtype = DTYPES[config.dtype]
     ndim = config.problem.ndim
@@ -63,6 +71,14 @@ def hierarchy_from_numpy(arrays: dict, config: SolverConfig,
 
     levels = []
     for lvl, st in zip(config.hierarchy.levels(), arrays["levels"]):
+        if p2:
+            grid = GridLevel(level=lvl, ndim=ndim, n=int(st["n"]) // 2)
+            if int(st.get("lm", st["n"] + 1)) != int(st["n"]) + 1:
+                raise ValueError("a P2 level's lm must be n + 1")
+            levels.append(p2_level(st["offsets"], grid, tensor(st["b"]),
+                                   tensor(st["g"]), config,
+                                   tensor(st["parity_tables"])))
+            continue
         grid = GridLevel(level=lvl, ndim=ndim, n=int(st["n"]))
         if st.get("planes") is not None:
             levels.append(planes_level(
@@ -81,13 +97,18 @@ def hierarchy_from_numpy(arrays: dict, config: SolverConfig,
     n0 = levels[0].n
     coarse = coarse_solver_from_numpy(c["factor"], c.get("piv"), c["kind"],
                                       (n0 + 1,) * ndim, device)
-    m_offsets, _ = mass_class_tables(dataclasses.replace(
-        config.problem, kappa=None, reaction=0.0))
     n_f = levels[-1].n
-    M_fine = mass_operator(m_offsets, tensor(arrays["class_tables"]), n_f,
-                           arrays.get("uniform_p1_mass",
-                                      config.problem.diagonal))
-    eq = error_quadrature(GridLevel(level=levels[-1].level, ndim=ndim, n=n_f),
-                          config.problem)
+    grid_f = GridLevel(level=levels[-1].level, ndim=ndim,
+                       n=n_f // 2 if p2 else n_f)
+    if p2:
+        M_fine = p2_mass_operator(arrays["m_offsets"], grid_f,
+                                  tensor(arrays["m_parity_tables"]))
+    else:
+        m_offsets, _ = mass_class_tables(dataclasses.replace(
+            config.problem, kappa=None, reaction=0.0))
+        M_fine = mass_operator(m_offsets, tensor(arrays["class_tables"]),
+                               n_f, arrays.get("uniform_p1_mass",
+                                               config.problem.diagonal))
+    eq = error_quadrature(grid_f, config.problem)
     return Hierarchy(levels=tuple(levels), coarse=coarse, M_fine=M_fine,
                      err_quad=eq)

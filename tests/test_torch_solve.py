@@ -275,14 +275,16 @@ def test_cuda_device_without_a_card_raises():
 def test_port_never_imports_jax():
     """A fresh interpreter importing the port (and running a tiny 3D lean
     solve in f64 and in f32, through the fused tail, a 2D assembled solve,
-    MG-CG with 3D Jacobi, a Chebyshev solve and a variable-kappa Galerkin
-    solve) has no jax in sys.modules.  A subprocess: this test file
-    imports jax."""
+    MG-CG with 3D Jacobi, a Chebyshev solve, a variable-kappa Galerkin
+    solve and a P2 solve and MG-CG) has no jax in sys.modules.  A
+    subprocess: this test file imports jax."""
     code = (
         "import sys, torch\n"
         "import multigrid_dolfinx_tpu_torch as T\n"
         "from multigrid_dolfinx_tpu_torch.ops.cuda import stencil3d_cheby\n"
         "from multigrid_dolfinx_tpu_torch.ops.cuda import stencil3d_tail\n"
+        "from multigrid_dolfinx_tpu_torch.ops.cuda import stencil3d_p2\n"
+        "from multigrid_dolfinx_tpu_torch.fem import fast_p2\n"
         "from multigrid_dolfinx_tpu_torch.solver import krylov\n"
         "from multigrid_dolfinx_tpu_torch.utils import convert\n"
         "cyc = T.CycleSpec(nu1=1, nu2=1, smoother='rbgs', restriction='pt',"
@@ -310,6 +312,11 @@ def test_port_never_imports_jax():
         " + z, finest_level=1, coarsest_elements=8, cycle=cyc)\n"
         "rv = T.solve(T.build_var_hierarchy(cv, device='cpu'), cyc)\n"
         "assert rv.converged and rv.u.shape == (17, 17, 17)\n"
+        "cp = T.CycleSpec(nu1=2, nu2=2, smoother='jacobi', restriction='pt',"
+        " tol=0.0, rtol=1e-8, max_cycles=30, track_error=False)\n"
+        "hp = T.build_p2_hierarchy(T.models.poisson3d_p2(finest_level=1,"
+        " coarsest_elements=2, dtype='float64', cycle=cp), device='cpu')\n"
+        "assert T.solve(hp, cp).converged and T.mgcg_solve(hp, cp).converged\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('multigrid_dolfinx_tpu.') "
         " or m == 'multigrid_dolfinx_tpu']\n"
