@@ -89,14 +89,33 @@ Phases (each prints one line; any failure exits nonzero with no result):
      check timed, launches, peak memory, u(1/2,1/2,1/2) (within 1e-2 of
      2.5) and max|u - u*| over the nodes, also after 4 more cycles and in
      an f64 twin; no plain kernel version runs on the card during either
-     path.
-Each main path (5, 7, 9, each run of 12, 16 and 19) sets the launch counts
+     path;
+ 20. the 2D stored-planes kernels K22-K24 (residual, Jacobi, multicolour
+     GS) against their plain versions in f32 and f64 at lm in
+     PLANES2_LMS on random planes with the 5 axis ('sum' colours), 7 P1
+     and 9 Galerkin ('quad') and 13 radius-2 ('mod'; lm <= 4097)
+     offsets, bitwise; kernel / plain times at 8193^2 f32 (7 offsets, the
+     finest level) and 4097^2 f32 (9 offsets, the level below);
+ 21. 2D variable kappa (models.variable_coefficient_2d, kappa = 1 + x +
+     2y, Galerkin, V(2,2) multicolour GS, P^T) at 2049^2 on the card
+     against the plain path on the CPU, f32 to rtol 1e-5 and f64 to rtol
+     1e-8, each count equal to the JAX package's (JAX_COUNTS_2049); the
+     Jacobi variant on the card, held to the JAX package's counts too;
+ 22. the same configuration at full width, 8193^2 f32, 11 levels, to
+     rtol RTOL_2D: build seconds, cycles, launches, peak memory, 10
+     V-cycles timed (rooted per level), the check timed, the f32 floor
+     from 6 more cycles; K22-K24, K8 and K9 on every level of that
+     hierarchy (its own planes and b) and of the f64 one, bitwise against
+     their plain versions; the Jacobi variant and MG-CG from FMG on the
+     same hierarchy; an f64 twin with u(1/2,1/2) and max|u_f32 - u_f64|;
+     no plain kernel version runs on the card during the f32 paths.
+Each main path (5, 7, 9, each run of 12, 16, 19 and 22) sets the launch counts
 to 0 just before it runs and reads them just after.  Each kernel's record
 carries its time, its plain version's, the time of one PyTorch call that
 computes the same function where there is one (library_ms, else null;
 never called by the port) and its bound: the larger of the bytes it must
 move over 3.35 TB/s and its f32 operations over 67 TFLOP/s (H100 SXM).
-The second-to-last line is the kernels' JSON record (K1-K21, each with
+The second-to-last line is the kernels' JSON record (K1-K24, each with
 the launches of the main path that runs it), the last line {"ok": true,
 "device": {...}}.  nvcc's report and the full record go to --out (default
 build/chip_smoke/, under the checkout).  Imports nothing of JAX.
@@ -146,6 +165,9 @@ TPU_KERNELS = {
     "p2_residual": "multigrid_dolfinx_tpu/ops/pallas/stencil3d_p2.py:240",
     "p2_jacobi_sweep": "multigrid_dolfinx_tpu/ops/pallas/stencil3d_p2.py:247",
     "p2_mass_quad": "multigrid_dolfinx_tpu/ops/pallas/stencil3d_p2.py:429",
+    "planes2_residual": "multigrid_dolfinx_tpu/ops/pallas/stencil2d.py:596",
+    "planes2_jacobi_sweep": "multigrid_dolfinx_tpu/ops/pallas/stencil2d.py:544",
+    "planes2_gs_sweep": "multigrid_dolfinx_tpu/ops/pallas/stencil2d.py:467",
 }
 KERNELS_3D = ("rb_sweep", "restrict_residual_pt", "prolong_linear_add",
               "prolong_linear", "residual_tet_quad")
@@ -167,6 +189,15 @@ TIMED_LM_P2 = 513         # the P2 finest lattice (256^3 elements)
 # library solve, rounded to f32, in another order on each device)
 RTOL_P2_SMALL = 1.2e-7
 TIMED_LM_VAR = 385        # the 384^3 variable-kappa finest level
+KERNELS_PLANES2 = ("planes2_residual", "planes2_jacobi_sweep",
+                   "planes2_gs_sweep")
+PLANES2_LMS = (9, 17, 1025, 4097, 8193)
+# the 2D variable-kappa configuration's cycle counts in the JAX package's
+# plain path on the CPU at 2049^2 (scripts/var2d_jax_counts.py), keyed by
+# (dtype, smoother); f32 to rtol 1e-5, f64 to rtol 1e-8
+JAX_COUNTS_2049 = {("float32", "rbgs"): 2, ("float32", "jacobi"): 3,
+                   ("float64", "rbgs"): 3, ("float64", "jacobi"): 7}
+RTOL_VAR2D = {"float32": 1e-5, "float64": 1e-8}
 AXIS7 = ((-1, 0, 0), (0, -1, 0), (0, 0, -1), (0, 0, 0), (0, 0, 1),
          (0, 1, 0), (1, 0, 0))
 BOX27 = tuple((a, b, c) for a in (-1, 0, 1) for b in (-1, 0, 1)
@@ -195,6 +226,8 @@ SOURCES = {
     "restrict_pt": "multigrid_dolfinx_tpu_torch/csrc/stencil3d.cu",
     **{k: "multigrid_dolfinx_tpu_torch/csrc/stencil3d_p2.cu"
        for k in KERNELS_P2},
+    **{k: "multigrid_dolfinx_tpu_torch/csrc/stencil2d_planes.cu"
+       for k in KERNELS_PLANES2},
 }
 # H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s and f32 FLOP/s
 # outside the tensor cores.
@@ -375,11 +408,14 @@ def phase_kernels(torch, np, mg, records):
     torch.cuda.empty_cache()
 
 
-def time_pairs(torch, pairs, err, records, label, shape, library=None):
+def time_pairs(torch, pairs, err, records, label, shape, library=None,
+               bounds=None):
     """Kernel and plain times, run as plain, kernel, kernel, plain, and
     the library call's time where there is one; shape[name] = (fine
-    points, coarse points) of the timed call, for its bound."""
+    points, coarse points) of the timed call, for its bound, unless
+    bounds[name] gives (bound_ms, bound_by)."""
     library = library or {}
+    bounds = bounds or {}
     for name, (kern, plain) in pairs.items():
         p1 = time_ms(torch, plain, reps=3, warmup=1)
         k1 = time_ms(torch, kern)
@@ -387,7 +423,7 @@ def time_pairs(torch, pairs, err, records, label, shape, library=None):
         p2 = time_ms(torch, plain, reps=3, warmup=1)
         lib = library.get(name)
         lib_ms = min(time_ms(torch, lib), time_ms(torch, lib)) if lib else None
-        bound_ms, bound_by = bound(name, *shape[name])
+        bound_ms, bound_by = bounds.get(name) or bound(name, *shape[name])
         records[name] = {
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": TPU_KERNELS[name], "launches": 0,
@@ -1604,7 +1640,8 @@ class PlainCalls:
         from multigrid_dolfinx_tpu_torch.ops import cuda as kcuda
 
         self.calls, self.saved = {}, []
-        for mod in (kcuda.stencil2d, kcuda.stencil3d, kcuda.stencil3d_cheby,
+        for mod in (kcuda.stencil2d, kcuda.stencil2d_planes,
+                    kcuda.stencil3d, kcuda.stencil3d_cheby,
                     kcuda.stencil3d_norm, kcuda.stencil3d_p2,
                     kcuda.stencil3d_planes, kcuda.stencil3d_tail):
             for name in dir(mod):
@@ -1930,6 +1967,356 @@ def phase_p2(torch, np, mg, card):
     return {k: counts[k] for k in KERNELS_P2}, out
 
 
+def var_kappa_2d(x, y):
+    """kappa = 1 + x + 2y, the JAX package's 2D planes fixture."""
+    return 1.0 + x + 2.0 * y
+
+
+def planes2_sets(mg):
+    from multigrid_dolfinx_tpu_torch.fem.fast_var import structural_offsets
+
+    axis5 = ((-1, 0), (0, -1), (0, 0), (0, 1), (1, 0))
+    box9 = tuple((a, b) for a in (-1, 0, 1) for b in (-1, 0, 1))
+    radius2 = tuple((a, b) for a in range(-2, 3) for b in range(-2, 3)
+                    if abs(a) + abs(b) <= 2)
+    return {"axis5": axis5, "p1_7": structural_offsets(2, "right"),
+            "box9": box9, "radius2": radius2}
+
+
+def planes2_bound(name, k, n):
+    """(bound_ms, bound_by) of K22-K24 on n f32 points with k planes:
+    bytes of k planes, v, f and the output over PEAK_BYTES_S; operations,
+    a multiply and an add per offset (the Jacobi sweep's centre left out)
+    plus 1 (residual), 6 (Jacobi, with the division) or 4 (GS)."""
+    ops = {"planes2_residual": 2 * k + 1, "planes2_jacobi_sweep": 2 * k + 4,
+           "planes2_gs_sweep": 2 * k + 4}[name]
+    t_bytes = 4.0 * (k + 3) * n / PEAK_BYTES_S * 1e3
+    t_ops = ops * n / PEAK_F32_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def random_planes2(torch, gen, offs, lm, dtype):
+    """Random planes on the card with a dominant centre plane, and random
+    v and f; not eliminated, so out-of-box neighbours are reached."""
+    dev = torch.device("cuda")
+    planes = torch.randn((len(offs), lm, lm), generator=gen, device=dev,
+                         dtype=dtype)
+    planes[offs.index((0, 0))].abs_().add_(float(len(offs)))
+    v, f = (torch.randn((lm, lm), generator=gen, device=dev, dtype=dtype)
+            for _ in range(2))
+    return planes, v, f
+
+
+def planes2_cases(sp, v, f, planes, offs, w):
+    """(name, kernel output, plain output) of K22-K24 on one input."""
+    return [
+        ("planes2_residual", sp.planes2_residual(v, f, planes, offs),
+         sp.planes2_residual_ref(v, f, planes, offs)),
+        ("planes2_jacobi_sweep",
+         sp.planes2_jacobi_sweep(v, f, planes, offs, w),
+         sp.planes2_jacobi_sweep_ref(v, f, planes, offs, w)),
+        ("planes2_gs_sweep", sp.planes2_gs_sweep(v.clone(), f, planes, offs),
+         sp.planes2_gs_sweep_ref(v.clone(), f, planes, offs)),
+    ]
+
+
+def phase_planes2_kernels(torch, np, mg, records):
+    """K22-K24 against their plain versions on the card, bitwise, in f32
+    and f64 at PLANES2_LMS in all three colour schedules, then kernel /
+    plain times at 8193^2 (7 offsets) and 4097^2 (9 offsets) f32."""
+    from multigrid_dolfinx_tpu_torch.ops import cuda as kcuda
+    from multigrid_dolfinx_tpu_torch.ops.cuda import stencil2d_planes as sp
+
+    sets = planes2_sets(mg)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    w = 2.0 / 3.0
+    err = {}
+    kcuda.reset_launch_counts()
+    for dtype in (torch.float32, torch.float64):
+        for lm in PLANES2_LMS:
+            parts = []
+            for name, offs in sets.items():
+                if name == "radius2" and lm > 4097:
+                    continue
+                planes, v, f = random_planes2(torch, gen, offs, lm, dtype)
+                cases = planes2_cases(sp, v, f, planes, offs, w)
+                torch.cuda.synchronize()
+                for kname, out, ref in cases:
+                    check_close(kname, out, ref, 0.0, err, parts,
+                                f"lm={lm} {name} {dtype}")
+                    if not bool(torch.isfinite(out).all()):
+                        raise AssertionError(f"{kname} at lm={lm} {name}: "
+                                             "non-finite output")
+                parts[-3:] = [f"{name}({sp.planes2_colors(offs)[0]}):" +
+                              ",".join(q.split("=")[1] for q in parts[-3:])]
+                del planes, v, f, cases
+                torch.cuda.empty_cache()
+            print(f"phase 20 lm={lm} {str(dtype)[6:]}: max|kernel-plain| "
+                  "(residual,jacobi,gs) " + " ".join(parts))
+    counts = kcuda.launch_counts()
+    missing = [k for k in KERNELS_PLANES2 if counts.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"launch counters did not move: {missing}")
+
+    timed = {}
+    for lm, name in ((TIMED_LM_2D, "p1_7"), ((TIMED_LM_2D + 1) // 2, "box9")):
+        offs = sets[name]
+        planes, v, f = random_planes2(torch, gen, offs, lm, torch.float32)
+        out = torch.empty_like(v)
+        vg, vr = v.clone(), v.clone()   # K24 and its plain version in place
+        pairs = {
+            "planes2_residual": (
+                lambda: sp.planes2_residual(v, f, planes, offs),
+                lambda: sp.planes2_residual_ref(v, f, planes, offs)),
+            "planes2_jacobi_sweep": (
+                lambda: sp.planes2_jacobi_sweep(v, f, planes, offs, w, out),
+                lambda: sp.planes2_jacobi_sweep_ref(v, f, planes, offs, w)),
+            "planes2_gs_sweep": (
+                lambda: sp.planes2_gs_sweep(vg, f, planes, offs),
+                lambda: sp.planes2_gs_sweep_ref(vr, f, planes, offs)),
+        }
+        bounds = {k: planes2_bound(k, len(offs), lm * lm) for k in pairs}
+        # the finest level's times go into the kernels' records
+        recs = records if lm == TIMED_LM_2D else {}
+        time_pairs(torch, pairs, err, recs,
+                   f"phase 20 time at lm={lm} f32, {len(offs)} planes", {},
+                   bounds=bounds)
+        if lm != TIMED_LM_2D:
+            timed[lm] = {k: {q: r[q] for q in ("ms", "plain_ms", "bound_ms")}
+                         for k, r in recs.items()}
+        del planes, v, f, out, vg, vr
+        torch.cuda.empty_cache()
+    return {"max_abs_err": {k: err[k] for k in KERNELS_PLANES2},
+            "timed_4097": timed}
+
+
+def var2d_config(mg, finest_level, dtype, smoother="rbgs"):
+    """models.variable_coefficient_2d at (8 * 2^finest_level + 1)^2, 11
+    levels at finest_level 10: Galerkin, V(2,2), P^T, FMG + tolerance
+    solve to RTOL_VAR2D[dtype]."""
+    cyc = mg.CycleSpec(nu1=2, nu2=2, smoother=smoother, restriction="pt",
+                       tol=0.0, rtol=RTOL_VAR2D[dtype], max_cycles=40,
+                       track_error=False)
+    return mg.models.variable_coefficient_2d(
+        var_kappa_2d, finest_level=finest_level, coarsest_level=0,
+        coarsest_elements=8, dtype=dtype, cycle=cyc), cyc
+
+
+def check_jax_count(label, dtype, smoother, k):
+    want = JAX_COUNTS_2049[(dtype, smoother)]
+    if k != want:
+        raise AssertionError(f"{label}: {k} cycles, the JAX package's plain "
+                             f"path takes {want}")
+
+
+def phase_small_var2d(torch, np, mg):
+    """2049^2, V(2,2) multicolour GS, f32 (rtol 1e-5) and f64 (rtol 1e-8):
+    the hierarchy built on the CPU and carried to the card solves as the
+    port's plain path on the CPU (same count, histories to 1e-4 in f32 as
+    phase 8, bitwise expected as in phase 15; in f64 to 1e-9 with an
+    absolute floor of 1e-15 ||b||_M, the tests' rule: the f64 coarse
+    solve and the norm's sum round in another order on the card); the
+    card-built hierarchy (its Galerkin convolution sums in another order
+    than the CPU's, so its f32 planes differ by roundings) takes the same
+    count; both counts equal the JAX package's.  The Jacobi variant on
+    the card is held to the JAX package's counts too."""
+    from multigrid_dolfinx_tpu_torch.solver.fmg import check_norm
+
+    def hist(r):
+        return r.res_hist[:r.num_cycles].double().cpu().numpy().tolist()
+
+    torch.set_num_threads(8)
+    out = {}
+    for dtype, rtol_h in (("float32", 1e-4), ("float64", 1e-9)):
+        cfg, cyc = var2d_config(mg, 8, dtype)
+        h_cpu = mg.build_var_hierarchy(cfg, device="cpu")
+        c = mg.solve(h_cpu, cyc)
+        atol = 0.0 if dtype == "float32" else 1e-15 * float(check_norm(
+            h_cpu, torch.zeros_like(h_cpu.finest.b), h_cpu.finest.b))
+        carried = mg.solve(mg.hierarchy_from_numpy(var_state(h_cpu), cfg),
+                           cyc)
+        del h_cpu
+        rel = compare_histories(np, f"2049^2 var {dtype} carried", carried,
+                                c, rtol_h, atol)
+        du = float((carried.u.cpu().double() - c.u.double()).abs().max())
+        g = mg.solve(mg.build_var_hierarchy(cfg), cyc)
+        if not g.converged or g.num_cycles != c.num_cycles:
+            raise AssertionError(f"2049^2 var {dtype}: card-built "
+                                 f"{g.num_cycles} cycles, cpu {c.num_cycles}")
+        check_jax_count(f"2049^2 var {dtype} rbgs", dtype, "rbgs",
+                        g.num_cycles)
+        cfg_j, cyc_j = var2d_config(mg, 8, dtype, "jacobi")
+        rj = mg.solve(mg.build_var_hierarchy(cfg_j), cyc_j)
+        if not rj.converged:
+            raise AssertionError(f"2049^2 var {dtype} jacobi did not converge")
+        check_jax_count(f"2049^2 var {dtype} jacobi", dtype, "jacobi",
+                        rj.num_cycles)
+        out[dtype] = {"cycles": c.num_cycles, "jacobi_cycles": rj.num_cycles,
+                      "res_hist_cpu": hist(c),
+                      "res_hist_carried": hist(carried),
+                      "res_hist_card_built": hist(g), "max_rel_diff": rel,
+                      "max_abs_u_carried_minus_cpu": du,
+                      "jacobi_res_hist": hist(rj)}
+        print(f"phase 21 2049^2 var kappa {dtype} (rtol {cyc.rtol}): rbgs "
+              f"{c.num_cycles} cycles on the cpu, carried to the card and "
+              f"card-built (JAX {JAX_COUNTS_2049[(dtype, 'rbgs')]}); res_hist "
+              f"cpu {hist(c)} carried {hist(carried)} card-built {hist(g)};"
+              f" max rel diff carried/cpu {rel}; max|u_carried-u_cpu| "
+              f"{du:.3e}; jacobi on the card {rj.num_cycles} cycles (JAX "
+              f"{JAX_COUNTS_2049[(dtype, 'jacobi')]}) {hist(rj)}")
+        del g, c, carried, rj
+    return out
+
+
+def run_var2d(torch, mg, dtype, label, hier=None, smoother="rbgs",
+              solve=None):
+    """Build (unless given) and solve the 8193^2 configuration, the launch
+    counts set to 0 just before and read just after, with no plain kernel
+    version running on the card."""
+    from multigrid_dolfinx_tpu_torch.ops import cuda as kcuda
+
+    cfg, cyc = var2d_config(mg, FINEST_LEVEL_2D, dtype, smoother)
+    solve = solve or mg.solve
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kcuda.reset_launch_counts()
+    with PlainCalls() as plain:
+        t0 = time.perf_counter()
+        if hier is None:
+            hier = mg.build_var_hierarchy(cfg)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res = solve(hier, cyc)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    counts = kcuda.launch_counts()
+    if plain.calls:
+        raise AssertionError(f"8193^2 var {label}: plain versions ran on the "
+                             f"card: {plain.calls}")
+    k = count_of(res)
+    mid = hier.finest.n // 2
+    run = {"build_s": t1 - t0, "solve_s": t2 - t1, "count": k,
+           "converged": res.converged,
+           "res_hist": res.res_hist[:k].double().cpu().numpy().tolist(),
+           "u_mid": float(res.u[mid, mid]),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "levels": [(lv.n + 1, len(lv.A.offsets)) for lv in hier.levels],
+           "launches": {n: c for n, c in counts.items() if c}}
+    print(f"phase 22 8193^2 var {dtype} {label}: (lm, planes) "
+          f"{run['levels']}, build {run['build_s']:.3f} s, solve "
+          f"{run['solve_s']:.3f} s, {k} cycles or iterations after FMG, "
+          f"converged={res.converged} diverged={res.diverged}, res_hist "
+          f"{run['res_hist']}, u(1/2,1/2)={run['u_mid']!r}, peak "
+          f"{run['peak_gb']:.2f} GB, launches {run['launches']}")
+    lm = 8 * 2 ** FINEST_LEVEL_2D + 1
+    if (not res.converged or res.diverged or tuple(res.u.shape) != (lm, lm)
+            or not bool(torch.isfinite(res.u).all())):
+        raise AssertionError(f"8193^2 var {dtype} {label} did not converge "
+                             "to a finite solution")
+    return hier, res, counts, run
+
+
+def check_levels_2d(torch, hier, err, label):
+    """K22-K24 on every level of `hier` with the level's own planes and b
+    and a random v, K8 of K22's residual to the level below and K9 from a
+    random coarse field, each bitwise against its plain version."""
+    from multigrid_dolfinx_tpu_torch.ops.cuda import stencil2d as s2
+    from multigrid_dolfinx_tpu_torch.ops.cuda import stencil2d_planes as sp
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    for li, lv in enumerate(hier.levels):
+        A, f, lm = lv.A, lv.b, lv.n + 1
+        v = torch.randn(f.shape, generator=gen, device="cuda", dtype=f.dtype)
+        cases = planes2_cases(sp, v, f, A.planes, A.offsets, lv.sm.omega)
+        if li > 0:
+            lmc = hier.levels[li - 1].n + 1
+            c = torch.randn((lmc, lmc), generator=gen, device="cuda",
+                            dtype=f.dtype)
+            r = cases[0][1]
+            cases += [("restrict_pt_2d", s2.restrict_pt(r, lm, lmc),
+                       s2.restrict_pt_ref(r, lm, lmc)),
+                      ("prolong_linear_2d", s2.prolong_linear(c, lm),
+                       s2.prolong_linear_ref(c, lm))]
+        torch.cuda.synchronize()
+        parts = []
+        for name, out, ref in cases:
+            check_close(name, out, ref, 0.0, err, parts, f"{label} lm={lm}")
+        print(f"phase 22 {label} level lm={lm} ({len(A.offsets)} planes): "
+              "max|kernel-plain| " + " ".join(parts))
+        del v, cases
+        torch.cuda.empty_cache()
+
+
+def phase_var2d(torch, np, mg, card, records):
+    """2D variable kappa at full width, 8193^2: f32 multicolour GS (the
+    slice's main path: launches, times, the f32 floor), its kernels on
+    every level, the Jacobi variant and MG-CG from FMG on the same
+    hierarchy, then the f64 twin."""
+    from multigrid_dolfinx_tpu_torch.solver.fmg import check_norm
+
+    err = {}
+    hier, res, counts, out = run_var2d(torch, mg, "float32", "V(2,2) rbgs")
+    if out["count"] > 3:
+        raise AssertionError(f"8193^2 var f32 took {out['count']} cycles "
+                             "(> 3)")
+    missing = [k for k in ("planes2_residual", "planes2_gs_sweep",
+                           "restrict_pt_2d", "prolong_linear_2d")
+               if counts.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"8193^2 var path did not launch {missing}")
+    _, cyc = var2d_config(mg, FINEST_LEVEL_2D, "float32")
+    rn_ref = float(check_norm(hier, torch.zeros_like(hier.finest.b),
+                              hier.finest.b))
+    ms, rooted = time_vcycles(torch, mg, hier, cyc, res.u)
+    check = time_ms(torch, lambda: check_norm(hier, res.u, hier.finest.b),
+                    reps=5, warmup=1)
+    more = mg.resume_solve(hier, dataclasses.replace(cyc, rtol=1e-12,
+                                                     max_cycles=6), res.u)
+    floor = (more.res_hist[:more.num_cycles].double().cpu().numpy()
+             / rn_ref).tolist()
+    dofs = (hier.finest.n + 1) ** 2
+    out.update(rn_ref=rn_ref, ms_per_vcycle=ms, dof_per_s=dofs / (ms * 1e-3),
+               ms_per_vcycle_rooted_at_lm=rooted, check_ms=check,
+               floor_rel_residuals=floor)
+    print(f"phase 22 V-cycle f32: {ms:.4f} ms/V-cycle, "
+          f"{dofs / (ms * 1e-3):.4e} DOF/s at {dofs} DOFs on [{card}]; check "
+          f"{check:.4f} ms; rooted at lm (ms): " + ", ".join(
+              f"{k}: {t:.4f}" for k, t in rooted.items()))
+    print(f"phase 22 f32: ||b||_M {rn_ref!r}; relative residual of 6 more "
+          f"cycles {floor}")
+    u32 = res.u
+    del res, more
+    check_levels_2d(torch, hier, err, "f32")
+
+    counts_j, out["jacobi"] = run_var2d(
+        torch, mg, "float32", "V(2,2) jacobi", hier=hier,
+        smoother="jacobi")[2:]
+    if counts_j.get("planes2_jacobi_sweep", 0) == 0:
+        raise AssertionError("8193^2 var jacobi run did not launch K23")
+    out["mgcg"] = run_var2d(torch, mg, "float32", "MG-CG from FMG",
+                            hier=hier, solve=mg.mgcg_solve)[3]
+    del hier
+    torch.cuda.empty_cache()
+
+    hier64, res64, _, out["f64"] = run_var2d(torch, mg, "float64",
+                                             "V(2,2) rbgs")
+    check_levels_2d(torch, hier64, err, "f64")
+    du = float((res64.u - u32.double()).abs().max())
+    out["max_abs_u_f32_minus_f64"] = du
+    print(f"phase 22 f32 vs f64: u(1/2,1/2) {out['u_mid']!r} vs "
+          f"{out['f64']['u_mid']!r}; max|u_f32 - u_f64| {du:.3e}")
+    del hier64, res64, u32
+    torch.cuda.empty_cache()
+    for k, e in err.items():
+        if k in records:
+            records[k]["max_abs_err"] = max(records[k]["max_abs_err"], e)
+    out["levels_max_abs_err"] = err
+    launches = {k: counts[k] for k in KERNELS_PLANES2}
+    launches["planes2_jacobi_sweep"] = counts_j["planes2_jacobi_sweep"]
+    return launches, out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=ROOT / "build" / "chip_smoke",
@@ -1993,6 +2380,12 @@ def main() -> int:
         small_p2 = phase_small_p2(torch, np, mg)
         phase = "19 P2 at the 513^3 lattice"
         counts_p2, p2 = phase_p2(torch, np, mg, card)
+        phase = "20 kernels K22-K24"
+        planes2 = phase_planes2_kernels(torch, np, mg, records)
+        phase = "21 2D var kappa at 2049^2"
+        small_var2d = phase_small_var2d(torch, np, mg)
+        phase = "22 2D var kappa at 8193^2"
+        counts_var2d, var2d = phase_var2d(torch, np, mg, card, records)
     except Exception:
         print(f"FAILED in phase {phase}:")
         traceback.print_exc(file=sys.stdout)
@@ -2004,12 +2397,14 @@ def main() -> int:
                            counts_s3[k] if k in KERNELS_SLICE3 else
                            counts_var[k] if k in KERNELS_PLANES else
                            counts_p2[k] if k in KERNELS_P2 else
+                           counts_var2d[k] if k in KERNELS_PLANES2 else
                            counts_2d[k])
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "build_s": build_s, "main": main,
          "reference": reference, "main_2d": main_2d, "slice3": slice3,
          "tail": tail, "planes": planes, "var_64": small_var, "var": var,
          "p2_kernels": p2_kernels, "p2_65": small_p2, "p2": p2,
+         "planes2": planes2, "var2d_2049": small_var2d, "var2d": var2d,
          "kernels": list(records.values())}, indent=1))
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -21,6 +21,10 @@ Its slices so far:
     build_var_hierarchy builds stored coefficient planes on the device,
     with rediscretised or Galerkin (P^T A P) coarse operators, smoothed by
     multicolour Gauss-Seidel or weighted Jacobi on the planes;
+  * 2D variable-coefficient diffusion (models.variable_coefficient_2d):
+    the same build_var_hierarchy on the triangulated square (7 planes on
+    the finest level, the 9-offset Galerkin box below), with the 2D
+    planes kernels for the residual, Jacobi and multicolour GS;
   * 3D Poisson with P2 elements (BASELINE.json config 4's constant-
     coefficient P2 path, models.poisson3d_p2): build_p2_hierarchy builds
     every level as a plane-free parity-table operator on the half-step

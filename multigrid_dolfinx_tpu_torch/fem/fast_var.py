@@ -8,7 +8,7 @@ cell c), so the build runs as torch ops on the target device:
     A_raw[off][p] = sum_{s,(a,b): v_b - v_a = off} K_s[a,b] kappa_s[p - v_a]
 
 then Dirichlet elimination and lifting as masked updates, and the Galerkin
-product P^T A P as one strided 3D convolution.  The host does O(1) work:
+product P^T A P as one strided 2D or 3D convolution.  The host does O(1) work:
 the element matrices K_s and the boundary-class load and mass tables.
 
 Storage is the logical (n+1)^d box; the TPU's tile padding
@@ -237,16 +237,13 @@ def galerkin_rap_device(offsets, planes: torch.Tensor, lm_f: int):
     Returns (coarse offsets, coarse planes), not eliminated."""
     offsets = tuple(map(tuple, offsets))
     ndim = len(offsets[0])
-    if ndim != 3:
-        raise NotImplementedError("the port's Galerkin RAP is 3D; 2D "
-                                  "variable kappa is ROADMAP.md queue 2, "
-                                  "item 13")
     lm_c = (lm_f - 1) // 2 + 1
     coarse_offsets, W = galerkin_weights(offsets, ndim)
     Wt = torch.as_tensor(W, dtype=planes.dtype, device=planes.device)
+    conv = F.conv2d if ndim == 2 else F.conv3d
     # enabled=True: cudnn.flags() would switch cuDNN off by default
     with torch.backends.cudnn.flags(enabled=True, deterministic=True,
                                     allow_tf32=False):
-        out = F.conv3d(planes[None], Wt, stride=2, padding=1)[0]
+        out = conv(planes[None], Wt, stride=2, padding=1)[0]
     assert out.shape == (len(coarse_offsets),) + (lm_c,) * ndim
     return coarse_offsets, out

@@ -1,10 +1,10 @@
 """Problem families of the port: 2D Poisson (the reference's problem), 3D
-Poisson (the main path), 3D variable-coefficient diffusion with Galerkin
-coarse operators and 3D Poisson with P2 elements.
+Poisson (the main path), 2D and 3D variable-coefficient diffusion with
+Galerkin coarse operators and 3D Poisson with P2 elements.
 
-The other constructors of `multigrid_dolfinx_tpu.models` (2D P2, 2D
-variable coefficient, screened) belong to later slices of the port
-(ROADMAP.md queue 1, items 20 and 21, queue 2, item 13).
+The other constructors of `multigrid_dolfinx_tpu.models` (2D P2,
+screened) belong to later slices of the port (ROADMAP.md queue 1, items
+20 and 21).
 """
 from __future__ import annotations
 
@@ -50,6 +50,37 @@ def poisson3d(
             coarsest_elements=coarsest_elements,
             coarsest_level=coarsest_level,
             finest_level=finest_level,
+        ),
+        cycle=cycle if cycle is not None else CycleSpec(nu1=2, nu2=2),
+        dtype=dtype,
+    )
+
+
+def variable_coefficient_2d(
+    kappa: Callable,
+    finest_level: int = 3,
+    coarsest_level: int = 1,
+    coarsest_elements: int = 8,
+    dtype: str = "float64",
+    cycle: Optional[CycleSpec] = None,
+    exact: Optional[Callable] = None,
+    rhs: Optional[Callable] = None,
+) -> SolverConfig:
+    """2D -div(kappa grad u) = f, kappa evaluated per triangle at its
+    centroid, with Galerkin (RAP) coarse operators (BASELINE.json config
+    4); the JAX package's defaults (V(2,2) Jacobi, injection).  kappa,
+    exact and rhs are callables of torch tensors (plain arithmetic works);
+    build with build_var_hierarchy."""
+    return SolverConfig(
+        problem=ProblemSpec(
+            ndim=2, kappa=kappa, exact=exact, rhs=rhs,
+            rhs_const=None if rhs is not None else -6.0,
+        ),
+        hierarchy=HierarchySpec(
+            coarsest_elements=coarsest_elements,
+            coarsest_level=coarsest_level,
+            finest_level=finest_level,
+            coarse_operator="galerkin",
         ),
         cycle=cycle if cycle is not None else CycleSpec(nu1=2, nu2=2),
         dtype=dtype,

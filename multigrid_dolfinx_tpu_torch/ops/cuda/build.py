@@ -23,7 +23,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
 SOURCES = ("stencil3d.cu", "stencil3d_cheby.cu", "stencil3d_tail.cu",
            "stencil3d_norm.cu", "stencil3d_planes.cu", "stencil3d_p2.cu",
-           "stencil2d.cu")
+           "stencil2d.cu", "stencil2d_planes.cu")
 HEADERS = ("stencil3d.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -45,6 +45,12 @@ SIGNATURES = {
     "mg_planes_jacobi_f64": "ppppipiiiddp",
     "mg_planes_gs_sweep_f32": "pppipiiiip",
     "mg_planes_gs_sweep_f64": "pppipiiiip",
+    "mg_planes2_residual_f32": "ppppipiiip",
+    "mg_planes2_residual_f64": "ppppipiiip",
+    "mg_planes2_jacobi_f32": "ppppipiiiffp",
+    "mg_planes2_jacobi_f64": "ppppipiiiddp",
+    "mg_planes2_gs_sweep_f32": "pppipiiiip",
+    "mg_planes2_gs_sweep_f64": "pppipiiiip",
     "mg_p2_residual_f32": "pppppipip",
     "mg_p2_residual_f64": "pppppipip",
     "mg_p2_jacobi_f32": "pppppipiiffp",

@@ -10,8 +10,9 @@ from __future__ import annotations
 
 import torch
 
-from .cuda import (stencil2d, stencil3d, stencil3d_cheby, stencil3d_norm,
-                   stencil3d_p2, stencil3d_planes, stencil3d_tail)
+from .cuda import (stencil2d, stencil2d_planes, stencil3d, stencil3d_cheby,
+                   stencil3d_norm, stencil3d_p2, stencil3d_planes,
+                   stencil3d_tail)
 from .cuda.stencil3d_planes import planes3_colors  # noqa: F401  (re-export)
 from .operators import StencilOperator
 
@@ -48,9 +49,10 @@ def require_const5(A: StencilOperator) -> None:
     versions do not compute, on every device."""
     if not const5_ok(A):
         raise NotImplementedError(
-            "2D operators other than the const-5 P1 stencil (variable "
-            "kappa, Galerkin, screened) are the 2D planes path, ROADMAP.md "
-            "queue 2, item 13")
+            "2D operators other than the const-5 P1 stencil run as stored "
+            "planes (build_var_hierarchy, kernels K22-K24); constant-"
+            "coefficient ones come from the host-assembled planes build, "
+            "ROADMAP.md queue 1, item 20")
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -133,6 +135,26 @@ def planes3_gs_sweep(v, f, planes, offsets):
     if _on_cuda(v):
         return stencil3d_planes.planes3_gs_sweep(v, f, planes, offsets)
     return stencil3d_planes.planes3_gs_sweep_ref(v, f, planes, offsets)
+
+
+def planes2_residual(v, f, planes, offsets):
+    if _on_cuda(v):
+        return stencil2d_planes.planes2_residual(v, f, planes, offsets)
+    return stencil2d_planes.planes2_residual_ref(v, f, planes, offsets)
+
+
+def planes2_jacobi_sweep(v, f, planes, offsets, w, out=None):
+    if _on_cuda(v):
+        return stencil2d_planes.planes2_jacobi_sweep(v, f, planes, offsets, w,
+                                                     out)
+    return stencil2d_planes.planes2_jacobi_sweep_ref(v, f, planes, offsets, w,
+                                                     out)
+
+
+def planes2_gs_sweep(v, f, planes, offsets):
+    if _on_cuda(v):
+        return stencil2d_planes.planes2_gs_sweep(v, f, planes, offsets)
+    return stencil2d_planes.planes2_gs_sweep_ref(v, f, planes, offsets)
 
 
 def p2_residual(v, f, tables, offsets):

@@ -1,15 +1,16 @@
 """Smoothers of the port: red-black Gauss-Seidel, weighted Jacobi and
 Chebyshev polynomial smoothing, on the const-7 (3D) and const-5 (2D)
-operators; multicolour Gauss-Seidel and weighted Jacobi on 3D
+operators; multicolour Gauss-Seidel and weighted Jacobi on 3D and 2D
 stored-planes operators; weighted Jacobi on the 3D P2 parity operator.
 
 Each sweep goes through ops.dispatch (a kernel on CUDA, its plain version
 on the CPU): 3D RB-GS through K1, 3D Jacobi through K11, 3D Chebyshev
 through the fused momentum-form step K12; 2D RB-GS through K6, 2D Jacobi
 through K5, 2D Chebyshev in p-form on the residual K7; on planes,
-multicolour GS through K17 and Jacobi through K16; on P2, Jacobi
-through K20.  Contracts the error norm, the FMG ramp and the reference's
-cycle counts rely on: after every GS sweep, boundary rows hold exactly f;
+multicolour GS through K17 and Jacobi through K16 in 3D, K24 and K23
+in 2D; on P2, Jacobi through K20.  Contracts the error norm, the FMG
+ramp and the reference's cycle counts rely on: after every GS sweep,
+boundary rows hold exactly f;
 Jacobi mixes them, (1-w) v + w f (the reference's jacobiRelaxation with
 identity rows), except on P2, whose Jacobi snaps them to f on every sweep
 (the JAX package's snap contract: the residual then vanishes on every
@@ -136,23 +137,30 @@ def _const7(A: StencilOperator):
 
 def smooth_planes(sm: SmootherData, A: StencilOperator, v: torch.Tensor,
                   f: torch.Tensor, nsweeps: int, kind: str) -> torch.Tensor:
-    """Sweeps on a 3D stored-planes operator: multicolour GS (K17, the
-    colours of dispatch.planes3_colors, in place on one copy of v a
-    phase) or weighted Jacobi (K16, out of place in two buffers), d = 1/P_c
-    from the centre plane.  The caller's v is never written."""
+    """Sweeps on a stored-planes operator: multicolour GS (K17 in 3D, K24
+    in 2D, the colours of planes3_colors / planes2_colors, in place on one
+    copy of v a phase) or weighted Jacobi (K16 in 3D, K23 in 2D, out of
+    place in two buffers), d = 1/P_c from the centre plane.  The caller's
+    v is never written."""
     if kind == "chebyshev":
         raise NotImplementedError(
             "Chebyshev smoothing on stored-planes operators needs the "
             "power-iteration lmax, ROADMAP.md queue 1, item 19")
+    if v.ndim == 2:
+        jacobi_sweep, gs_sweep = (dispatch.planes2_jacobi_sweep,
+                                  dispatch.planes2_gs_sweep)
+    else:
+        jacobi_sweep, gs_sweep = (dispatch.planes3_jacobi_sweep,
+                                  dispatch.planes3_gs_sweep)
     if kind == "jacobi":
         bufs = [torch.empty_like(v) for _ in range(min(nsweeps, 2))]
         for k in range(nsweeps):
-            v = dispatch.planes3_jacobi_sweep(v, f, A.planes, A.offsets,
-                                              sm.omega, out=bufs[k % 2])
+            v = jacobi_sweep(v, f, A.planes, A.offsets, sm.omega,
+                             out=bufs[k % 2])
         return v
     v = v.clone()
     for _ in range(nsweeps):
-        dispatch.planes3_gs_sweep(v, f, A.planes, A.offsets)
+        gs_sweep(v, f, A.planes, A.offsets)
     return v
 
 

@@ -7,9 +7,10 @@ device, as the JAX package's fixed-size buffers.  The per-cycle check
 r = f - A v, sqrt(r^T M r) runs as kernel K4 in one pass over v and f in
 3D; in 2D it is the residual kernel K7 and the plain class-table mass
 norm, as the JAX package computes it (it has no fused 2D norm kernel),
-and on a stored-planes finest level the residual kernel K15 and the
-plain class-table norm, as the JAX package falls back to; on a P2 parity
-finest level the residual K19 and the raw mass quadratic form K21.
+and on a stored-planes finest level the residual kernel (K15 in 3D,
+K22 in 2D) and the plain class-table norm, as the JAX package falls
+back to; on a P2 parity finest level the residual K19 and the raw mass
+quadratic form K21.
 """
 from __future__ import annotations
 
@@ -76,8 +77,8 @@ def check_norm(hier: Hierarchy, v: torch.Tensor,
     """The per-cycle check sqrt(r^T M r), r = f - A v: through kernel K4
     on a 3D const-7 level; through K19 and K21 on a P2 parity level
     (exact at face rows too, so it also gives ||b||_M of the zero
-    iterate); through the residual kernel (K7 in 2D, K15 on planes) and
-    the class-table norm otherwise; in v's dtype."""
+    iterate); through the residual kernel (K7 in 2D, K15 / K22 on 3D / 2D
+    planes) and the class-table norm otherwise; in v's dtype."""
     lv = hier.finest
     if lv.A.parity_tables is not None:
         M = hier.M_fine

@@ -4,7 +4,7 @@ Mirrors `multigrid_dolfinx_tpu.solver.hierarchy` for P1: for constant
 coefficients in 2D and 3D, `build_lean_hierarchy` builds b and g on the
 device from a tiny assembled prototype and `build_hierarchy` assembles
 every level on the host (the reference's rediscretisation) and ships it;
-for variable kappa in 3D, `build_var_hierarchy` builds every level's
+for variable kappa in 2D and 3D, `build_var_hierarchy` builds every level's
 coefficient planes, b and g on the device (fem.fast_var).  Frozen
 dataclasses take the place of the JAX pytrees; every tensor lives on the
 device given to the build function, the CUDA card unless the caller asks
@@ -102,7 +102,7 @@ def resolve_device(device) -> torch.device:
 def check_problem(config: SolverConfig, var: bool = False,
                   p2: bool = False) -> None:
     """Raise for problems outside the port's slices.  var=True checks for
-    build_var_hierarchy (3D P1, variable kappa, constant RHS, either
+    build_var_hierarchy (2D or 3D P1, variable kappa, constant RHS, either
     coarse operator, reaction allowed), p2=True for build_p2_hierarchy
     (3D P2, constant coefficient and RHS, rediscretised), else for the
     constant-coefficient P1 builds."""
@@ -136,9 +136,6 @@ def check_problem(config: SolverConfig, var: bool = False,
             raise ValueError("build_var_hierarchy is the variable-"
                              "coefficient path; use build_lean_hierarchy "
                              "for kappa=None")
-        if p.ndim != 3:
-            raise NotImplementedError(
-                "2D variable kappa is ROADMAP.md queue 2, item 13")
         if p.rhs_const is None:
             raise NotImplementedError(
                 "build_var_hierarchy needs a constant RHS (rhs_const); "
@@ -302,19 +299,19 @@ def check_var_cycle(config: SolverConfig) -> None:
 
 
 def build_var_hierarchy(config: SolverConfig, device="cuda") -> Hierarchy:
-    """Hierarchy for variable-coefficient 3D P1 on `device` (the CUDA card
-    by default; without one this raises), built there level by level,
-    finest first (fem.fast_var): kappa fields from index coordinates, raw
-    planes as shifted multiply-adds, b and g with lifting by the level's
-    rediscretised raw planes (also in Galerkin mode, as build_hierarchy's
-    per-level assembly), then the operator: the level's own planes
-    (rediscretize; the 15 Kuhn offsets) or P^T A P of the finer level's
-    eliminated planes (galerkin below the finest; the 3^3 box), Dirichlet
-    eliminated in place.  The coarse factor comes from the coarsest
-    eliminated planes in f64; the mass operator is the class table of the
-    constant-coefficient P1 mass.  Stores K planes, b and g per level; no
-    1/diag and no R_omega planes (K16 and K17 form D^-1 (A - D) from A
-    itself)."""
+    """Hierarchy for variable-coefficient 2D or 3D P1 on `device` (the
+    CUDA card by default; without one this raises), built there level by
+    level, finest first (fem.fast_var): kappa fields from index
+    coordinates, raw planes as shifted multiply-adds, b and g with lifting
+    by the level's rediscretised raw planes (also in Galerkin mode, as
+    build_hierarchy's per-level assembly), then the operator: the level's
+    own planes (rediscretize; the 15 Kuhn offsets in 3D, 7 in 2D) or
+    P^T A P of the finer level's eliminated planes (galerkin below the
+    finest; the 3^d box), Dirichlet eliminated in place.  The coarse
+    factor comes from the coarsest eliminated planes in f64; the mass
+    operator is the class table of the constant-coefficient P1 mass.
+    Stores K planes, b and g per level; no 1/diag and no R_omega planes
+    (the Jacobi and GS kernels form D^-1 (A - D) from A itself)."""
     check_problem(config, var=True)
     check_var_cycle(config)
     device = resolve_device(device)

@@ -36,9 +36,9 @@ class CGResult(NamedTuple):
 
 
 def apply_operator(level, p: torch.Tensor, zero: torch.Tensor) -> torch.Tensor:
-    """A p = -(0 - A p): the residual kernel (K10 in 3D, K7 in 2D, K15 on
-    planes, K19 on P2) on the zero right-hand side `zero`; identity rows
-    give p exactly.  The JAX
+    """A p = -(0 - A p): the residual kernel (K10 in 3D, K7 in 2D, K15 /
+    K22 on 3D / 2D planes, K19 on P2) on the zero right-hand side `zero`;
+    identity rows give p exactly.  The JAX
     package forms A p as p - r(p, p), which rounds r = p - A p to the
     solve's dtype first.  For the smoothest modes |A p| ~ 3 pi^2 h^3 |p|
     in 3D (2.2e-7 |p| at 512^3, a few f32 ulps of |p|), so in f32 that

@@ -13,10 +13,10 @@ Galerkin) runs ν1 sweeps (K17 multicolour GS or K16 Jacobi), the
 residual (K15) and its P^T restriction (K18) in two steps, the
 recursion, the correction through K3 and ν2 sweeps; a 3D P2 parity level
 the same with K20 snap-Jacobi sweeps and the residual K19.  In 2D a
-level runs
-ν1 sweeps (K5 Jacobi, K6 red-black or Chebyshev on K7), the residual
-(K7), its restriction (K8 for 'pt', plain injection otherwise), the
-recursion, v + P(vc) through K9 (the JAX package has no fused 2D
+level runs ν1 sweeps (K5 Jacobi, K6 red-black or Chebyshev on K7; on
+stored planes K23 Jacobi or K24 multicolour GS), the residual (K7; K22
+on planes), its restriction (K8 for 'pt', plain injection otherwise),
+the recursion, v + P(vc) through K9 (the JAX package has no fused 2D
 correction) and ν2 sweeps.
 """
 from __future__ import annotations
@@ -47,14 +47,15 @@ def check_slice(spec: CycleSpec) -> None:
 
 def compute_residual(level, v: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
     """r = f - A v: kernel K7 in 2D, K10 in 3D (boundary rows f - v), K15
-    on 3D stored planes, K19 on the P2 parity operator."""
+    on 3D stored planes, K22 on 2D ones, K19 on the P2 parity operator."""
     lm = level.n + 1
     if level.A.parity_tables is not None:
         return dispatch.p2_residual(v, f, level.A.parity_tables,
                                     level.A.offsets)
     if level.A.planes is not None:
-        return dispatch.planes3_residual(v, f, level.A.planes,
-                                         level.A.offsets)
+        residual = (dispatch.planes2_residual if v.ndim == 2
+                    else dispatch.planes3_residual)
+        return residual(v, f, level.A.planes, level.A.offsets)
     if v.ndim == 2:
         dispatch.require_const5(level.A)
         return dispatch.residual_2d(v, f, lm)

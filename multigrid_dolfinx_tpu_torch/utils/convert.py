@@ -1,9 +1,9 @@
 """Carry a hierarchy's state across from plain numpy arrays.
 
 `hierarchy_from_numpy` rebuilds the port's Hierarchy from the state of a
-JAX-package hierarchy (2D or 3D, lean or assembled, the 3D variable-kappa
-build or the 3D P2 build) written out as numpy arrays and Python scalars, so
-both packages can run from the same state.
+JAX-package hierarchy (2D or 3D, lean or assembled, the 2D or 3D
+variable-kappa build or the 3D P2 build) written out as numpy arrays and
+Python scalars, so both packages can run from the same state.
 It imports nothing of JAX; the caller does the jax -> numpy step, e.g.
 
     arrays = {

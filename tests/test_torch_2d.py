@@ -420,7 +420,7 @@ def test_non_const5_operator_raises():
         const_weights=tuple(2.0 * w for w in lv.A.const_weights))
     assert dispatch.const5_ok(lv.A) and not dispatch.const5_ok(scaled)
     for kind in ("rbgs", "jacobi"):
-        with pytest.raises(NotImplementedError, match="queue 2, item 13"):
+        with pytest.raises(NotImplementedError, match="K22-K24"):
             smooth(lv.sm, scaled, lv.b, lv.b, 1, kind)
 
 

@@ -276,14 +276,16 @@ def test_port_never_imports_jax():
     """A fresh interpreter importing the port (and running a tiny 3D lean
     solve in f64 and in f32, through the fused tail, a 2D assembled solve,
     MG-CG with 3D Jacobi, a Chebyshev solve, a variable-kappa Galerkin
-    solve and a P2 solve and MG-CG) has no jax in sys.modules.  A
-    subprocess: this test file imports jax."""
+    solve, a P2 solve and MG-CG, a 2D variable-kappa solve and MG-CG)
+    has no jax in sys.modules.  A subprocess: this test file imports
+    jax."""
     code = (
         "import sys, torch\n"
         "import multigrid_dolfinx_tpu_torch as T\n"
         "from multigrid_dolfinx_tpu_torch.ops.cuda import stencil3d_cheby\n"
         "from multigrid_dolfinx_tpu_torch.ops.cuda import stencil3d_tail\n"
         "from multigrid_dolfinx_tpu_torch.ops.cuda import stencil3d_p2\n"
+        "from multigrid_dolfinx_tpu_torch.ops.cuda import stencil2d_planes\n"
         "from multigrid_dolfinx_tpu_torch.fem import fast_p2\n"
         "from multigrid_dolfinx_tpu_torch.solver import krylov\n"
         "from multigrid_dolfinx_tpu_torch.utils import convert\n"
@@ -317,6 +319,12 @@ def test_port_never_imports_jax():
         "hp = T.build_p2_hierarchy(T.models.poisson3d_p2(finest_level=1,"
         " coarsest_elements=2, dtype='float64', cycle=cp), device='cpu')\n"
         "assert T.solve(hp, cp).converged and T.mgcg_solve(hp, cp).converged\n"
+        "c2 = T.models.variable_coefficient_2d(lambda x, y: 1.0 + x + 2.0 * y,"
+        " finest_level=1, coarsest_level=0, cycle=cyc)\n"
+        "h2 = T.build_var_hierarchy(c2, device='cpu')\n"
+        "r2v = T.solve(h2, cyc)\n"
+        "assert r2v.converged and r2v.u.shape == (17, 17)\n"
+        "assert T.mgcg_solve(h2, cyc).converged\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('multigrid_dolfinx_tpu.') "
         " or m == 'multigrid_dolfinx_tpu']\n"

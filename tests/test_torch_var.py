@@ -220,17 +220,20 @@ def test_chebyshev_on_the_var_build_raises():
 
 
 def test_var_build_checks_its_problem():
-    """kappa=None is the lean build's, 2D variable kappa the next slice;
-    the lean build refuses kappa naming build_var_hierarchy; the model
-    constructor matches the JAX package's."""
+    """kappa=None is the lean build's, a callable right-hand side the
+    host-assembled build's (ROADMAP item 20); the lean build refuses kappa
+    naming build_var_hierarchy; the model constructor matches the JAX
+    package's."""
     cfg = _config(T, "galerkin-rbgs")
     with pytest.raises(ValueError, match="build_lean_hierarchy"):
         T.build_var_hierarchy(dataclasses.replace(
             cfg, problem=dataclasses.replace(cfg.problem, kappa=None)),
             device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 2, item 13"):
+    with pytest.raises(NotImplementedError, match="item 20"):
         T.build_var_hierarchy(dataclasses.replace(
-            cfg, problem=T.ProblemSpec(ndim=2, kappa=_kappa)), device="cpu")
+            cfg, problem=T.ProblemSpec(ndim=3, kappa=_kappa, rhs_const=None,
+                                       rhs=lambda *xs: -12.0 + 0 * xs[0])),
+            device="cpu")
     with pytest.raises(NotImplementedError, match="build_var_hierarchy"):
         T.build_lean_hierarchy(cfg, device="cpu")
     tm = T.models.variable_coefficient_3d(_kappa, dtype="float32")
