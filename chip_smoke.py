@@ -108,15 +108,38 @@ Phases (each prints one line; any failure exits nonzero with no result):
      hierarchy (its own planes and b) and of the f64 one, bitwise against
      their plain versions; the Jacobi variant and MG-CG from FMG on the
      same hierarchy; an f64 twin with u(1/2,1/2) and max|u_f32 - u_f64|;
-     no plain kernel version runs on the card during the f32 paths.
-Each main path (5, 7, 9, each run of 12, 16, 19 and 22) sets the launch counts
+     no plain kernel version runs on the card during the f32 paths;
+ 23. the z-slab kernels K25-K29 of the distributed 3D path (red-black,
+     Jacobi, residual, residual + P^T, prolongation + correction) against
+     their plain versions on every rank's block of global lm in DIST_LMS
+     split over 2 and 4 ranks as the port's plan splits them, the main
+     path's (136, 513, 513) blocks among them (edge and interior ranks,
+     plan padding rows included), f32 and f64, bitwise; the blocks' outputs stitched
+     together bitwise the single-device K1, K11, K10, K2 and K3 on the
+     same global data; kernel / plain times at DIST_TIMED in f32;
+ 24. the distributed 3D solve at 64^3 f32 over 2 ranks (gloo, both on
+     the card) against the same ranks on the CPU with the plain
+     versions: equal counts, histories within 1e-5, u compared (V(2,2)
+     red-black to rtol 1e-7, MG-CG from FMG to 1e-6);
+ 25. the distributed 3D main path at full width, 512^3 f32, over
+     DIST_RANKS ranks sharing the card over gloo (spawned with
+     parallel.run_ranks, the library built by phase 2): FMG + V(2,2)
+     red-black to rtol 1e-8, (G2) MG-CG from FMG and an FMG-started
+     V(2,2) Jacobi solve to 1e-6, with K25-K29 launches per rank, peak
+     memory per rank, 10 V-cycles timed and split into kernel time (CUDA
+     events) and halo / collective wall time, one halo exchange timed
+     alone; each rank's slab comes back through a file and must equal
+     phase 5's single-device u exactly, in the same cycle count, with
+     u(1/2,1/2,1/2) within 1e-2 of 2.5.
+Each main path (5, 7, 9, each run of 12, 16, 19, 22 and 25) sets the launch counts
 to 0 just before it runs and reads them just after.  Each kernel's record
 carries its time, its plain version's, the time of one PyTorch call that
 computes the same function where there is one (library_ms, else null;
 never called by the port) and its bound: the larger of the bytes it must
 move over 3.35 TB/s and its f32 operations over 67 TFLOP/s (H100 SXM).
-The second-to-last line is the kernels' JSON record (K1-K24, each with
-the launches of the main path that runs it), the last line {"ok": true,
+Before them a line gives each phase's wall seconds.  The second-to-last
+line is the kernels' JSON record (K1-K29, each with the launches of the
+main path that runs it), the last line {"ok": true,
 "device": {...}}.  nvcc's report and the full record go to --out (default
 build/chip_smoke/, under the checkout).  Imports nothing of JAX.
 """
@@ -168,6 +191,13 @@ TPU_KERNELS = {
     "planes2_residual": "multigrid_dolfinx_tpu/ops/pallas/stencil2d.py:596",
     "planes2_jacobi_sweep": "multigrid_dolfinx_tpu/ops/pallas/stencil2d.py:544",
     "planes2_gs_sweep": "multigrid_dolfinx_tpu/ops/pallas/stencil2d.py:467",
+    "rb_sweep_dist": "multigrid_dolfinx_tpu/ops/pallas/stencil3d_dist.py:257",
+    "jacobi_sweep_dist": "multigrid_dolfinx_tpu/ops/pallas/stencil3d_dist.py:276",
+    "residual_dist": "multigrid_dolfinx_tpu/ops/pallas/stencil3d_dist.py:293",
+    "restrict_residual_pt_dist":
+        "multigrid_dolfinx_tpu/ops/pallas/stencil3d_dist.py:446",
+    "prolong_linear_dist":
+        "multigrid_dolfinx_tpu/ops/pallas/stencil3d_dist.py:576",
 }
 KERNELS_3D = ("rb_sweep", "restrict_residual_pt", "prolong_linear_add",
               "prolong_linear", "residual_tet_quad")
@@ -192,6 +222,17 @@ TIMED_LM_VAR = 385        # the 384^3 variable-kappa finest level
 KERNELS_PLANES2 = ("planes2_residual", "planes2_jacobi_sweep",
                    "planes2_gs_sweep")
 PLANES2_LMS = (9, 17, 1025, 4097, 8193)
+KERNELS_DIST = ("rb_sweep_dist", "jacobi_sweep_dist", "residual_dist",
+                "restrict_residual_pt_dist", "prolong_linear_dist")
+DIST_LMS = (17, 65, 257, 513)
+# (slabs, lm) of a rank's finest block: 512^3 over 4 ranks (this check's
+# distributed run) and 1024^3 over 8 (the JAX package's production shape)
+DIST_TIMED = ((136, 513), (136, 1025))
+DIST_RANKS = 4
+DIST_TIMEOUT_S = 600      # the spawned ranks' limit (phases 24-25)
+# the 64^3 distributed run, card vs CPU: rbgs to 1e-7 (phase 4's rtol) and
+# MG-CG to 1e-6 (1e-7 is below the f32 floor for MG-CG at 64^3)
+RTOL_DIST_SMALL = {"solve": 1e-7, "mgcg": 1e-6}
 # the 2D variable-kappa configuration's cycle counts in the JAX package's
 # plain path on the CPU at 2049^2 (scripts/var2d_jax_counts.py), keyed by
 # (dtype, smoother); f32 to rtol 1e-5, f64 to rtol 1e-8
@@ -228,6 +269,8 @@ SOURCES = {
        for k in KERNELS_P2},
     **{k: "multigrid_dolfinx_tpu_torch/csrc/stencil2d_planes.cu"
        for k in KERNELS_PLANES2},
+    **{k: "multigrid_dolfinx_tpu_torch/csrc/stencil3d_dist.cu"
+       for k in KERNELS_DIST},
 }
 # H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s and f32 FLOP/s
 # outside the tensor cores.
@@ -245,7 +288,10 @@ OPS = {"rb_sweep": 8, "restrict_residual_pt": 9, "restrict_residual_pt_c": 40,
        "prolong_linear": 3, "prolong_linear_add": 4, "residual_tet_quad": 63,
        "jacobi_sweep_2d": 8, "rb_sweep_2d": 5, "residual_2d": 6,
        "restrict_pt_2d": 0, "restrict_pt_2d_c": 13, "prolong_linear_2d": 2,
-       "residual": 9, "jacobi_sweep": 11, "cheby_step": 14}
+       "residual": 9, "jacobi_sweep": 11, "cheby_step": 14,
+       "rb_sweep_dist": 8, "jacobi_sweep_dist": 11, "residual_dist": 9,
+       "restrict_residual_pt_dist": 9, "restrict_residual_pt_dist_c": 40,
+       "prolong_linear_dist": 4}
 # f32 arrays of fine points each kernel reads or writes once (fine, coarse)
 ARRAYS = {"rb_sweep": (3, 0), "restrict_residual_pt": (2, 1),
           "prolong_linear": (1, 1), "prolong_linear_add": (2, 1),
@@ -256,13 +302,17 @@ ARRAYS = {"rb_sweep": (3, 0), "restrict_residual_pt": (2, 1),
           "planes3_residual": (18, 0), "planes3_jacobi_sweep": (18, 0),
           "planes3_gs_sweep": (18, 0), "restrict_pt": (1, 1),
           "p2_residual": (3, 0), "p2_jacobi_sweep": (3, 0),
-          "p2_mass_quad": (1, 0)}
+          "p2_mass_quad": (1, 0), "rb_sweep_dist": (3, 0),
+          "jacobi_sweep_dist": (3, 0), "residual_dist": (3, 0),
+          "restrict_residual_pt_dist": (2, 1), "prolong_linear_dist": (2, 1)}
 RTOL_64 = {"C": 1e-7, "G1": 1e-6}     # above the f32 floor at 64^3
 # K1-K3 and K5-K9 must agree to 1e-6 of the reference's magnitude (bitwise is
 # expected: same association order, kernels built with --fmad=false); K4
 # to 1e-5 relative (its f64 sum runs in another order than torch.sum).
 TOL_STENCIL = 1e-6
 TOL_NORM = 1e-5
+# what a later phase compares with: phase 5's 512^3 u (on the host)
+KEPT = {}
 
 
 def cycle_spec(mg, rtol):
@@ -509,6 +559,7 @@ def phase_main(torch, np, mg, card):
     mid = lm // 2
     u_mid = float(res.u[mid, mid, mid])
     hist = res.res_hist[:res.num_cycles].double().cpu().numpy().tolist()
+    KEPT["u_main"] = res.u.cpu()
     print(f"phase 5 512^3 f32: build {t1 - t0:.3f} s, solve {t2 - t1:.3f} s, "
           f"{res.num_cycles} cycles after FMG, converged={res.converged} "
           f"diverged={res.diverged}, res_hist {hist}, u(1/2,1/2,1/2)={u_mid!r}, "
@@ -2317,6 +2368,429 @@ def phase_var2d(torch, np, mg, card, records):
     return launches, out
 
 
+def dist_blocks(torch, a, P, z, h):
+    """[(block, lo, hi)] of the global array a padded with zero rows to z
+    and split over P ranks, with h-deep halos (zeros past the edges): what
+    each rank holds and what the halo exchange hands it."""
+    pad = torch.zeros((z + 2 * h,) + tuple(a.shape[1:]), dtype=a.dtype,
+                      device=a.device)
+    pad[h:h + a.shape[0]] = a
+    mz = z // P
+    return [tuple(pad[lo:hi].contiguous() for lo, hi in (
+        (h + r * mz, h + (r + 1) * mz), (r * mz, h + r * mz),
+        (h + (r + 1) * mz, 2 * h + (r + 1) * mz))) for r in range(P)]
+
+
+def dist_cases(sd, blk, lm, wc, woff, w, zb):
+    """(name, kernel call, plain call) of K25-K29 on one rank's block."""
+    (v, vlo2, vhi2), (f, flo2, fhi2), (_, vlo1, vhi1), (_, flo1, fhi1), \
+        (c, _, chi) = blk
+    lmc = (lm + 1) // 2
+    a2 = (v, f, vlo2, vhi2, flo2, fhi2)
+    a1 = (v, f, vlo1, vhi1, flo1, fhi1)
+    return [
+        ("rb_sweep_dist", lambda: sd.rb_sweep_dist(*a2, lm, wc, woff, zb),
+         lambda: sd.rb_sweep_dist_ref(*a2, lm, wc, woff, zb)),
+        ("jacobi_sweep_dist",
+         lambda: sd.jacobi_sweep_dist(*a1, lm, wc, woff, w, zb),
+         lambda: sd.jacobi_sweep_dist_ref(*a1, lm, wc, woff, w, zb)),
+        ("residual_dist", lambda: sd.residual_dist(*a1, lm, wc, woff, zb),
+         lambda: sd.residual_dist_ref(*a1, lm, wc, woff, zb)),
+        ("restrict_residual_pt_dist",
+         lambda: sd.restrict_residual_pt_dist(*a2, lm, lmc, wc, woff, zb),
+         lambda: sd.restrict_residual_pt_dist_ref(*a2, lm, lmc, wc, woff,
+                                                  zb)),
+        ("prolong_linear_dist",
+         lambda: sd.prolong_linear_dist(c, chi[:1], lm, zb, v),
+         lambda: sd.prolong_linear_dist_ref(c, chi[:1], lm, zb, v)),
+    ]
+
+
+def dist_z(mg, lm, P):
+    """The padded z that parallel.halo3d's plan gives the lm^3 level over
+    P ranks: that of the main path's 512^3 hierarchy where the level is
+    sharded there, else that of the hierarchy whose finest level it is."""
+    from multigrid_dolfinx_tpu_torch.parallel.halo3d import ZPlan
+
+    for lm_f in (TIMED_LM, lm):
+        fl = (lm_f - 1).bit_length() - 4      # 8 * 2^fl elements per axis
+        plan = ZPlan.of(mg.models.poisson3d(
+            finest_level=fl, coarsest_level=0, coarsest_elements=8), P)
+        z = plan.zs[plan.lms.index(lm)]
+        if z is not None:
+            return z
+    raise AssertionError(f"no plan shards lm={lm} over {P} ranks")
+
+
+def phase_dist_kernels(torch, np, mg, records):
+    """K25-K29 against their plain versions on every rank's block (edge
+    and interior ranks, P in {2, 4}) in f32 and f64 at lm in DIST_LMS,
+    split as the plan splits them (dist_z), bitwise; stitched over the ranks, bitwise the single-device K1, K11,
+    K10, K2 and K3 on the same global data (plan padding rows 0); kernel,
+    plain and bound times at DIST_TIMED in f32."""
+    from multigrid_dolfinx_tpu_torch.ops import cuda as kcuda
+    from multigrid_dolfinx_tpu_torch.ops.cuda import stencil3d as s3
+    from multigrid_dolfinx_tpu_torch.ops.cuda import stencil3d_dist as sd
+
+    rng = np.random.default_rng(SEED + 23)
+    dev = torch.device("cuda")
+    w = 2.0 / 3.0
+    err = {}
+    kcuda.reset_launch_counts()
+    for dtype in (torch.float32, torch.float64):
+        for lm in DIST_LMS:
+            wc, woff = level_weights(mg, lm)
+            lmc = (lm + 1) // 2
+            v, f = (torch.from_numpy(rng.standard_normal((lm,) * 3)).to(
+                dev, dtype) for _ in range(2))
+            c = torch.from_numpy(rng.standard_normal((lmc,) * 3)).to(
+                dev, dtype)
+            single = {
+                "rb_sweep_dist": s3.rb_sweep(v, f, lm, wc, woff),
+                "jacobi_sweep_dist": s3.jacobi_sweep(v, f, lm, wc, woff, w),
+                "residual_dist": s3.residual(v, f, lm, wc, woff),
+                "restrict_residual_pt_dist": s3.restrict_residual_pt(
+                    v, f, lm, lmc, wc, woff),
+                "prolong_linear_dist": s3.prolong_linear(c, lm, v),
+            }
+            parts = []
+            for P in (2, 4):
+                z = dist_z(mg, lm, P)
+                blocks = list(zip(
+                    dist_blocks(torch, v, P, z, 2),
+                    dist_blocks(torch, f, P, z, 2),
+                    dist_blocks(torch, v, P, z, 1),
+                    dist_blocks(torch, f, P, z, 1),
+                    dist_blocks(torch, c, P, z // 2, 1)))
+                outs = {k: [] for k in KERNELS_DIST}
+                for r in range(P):
+                    for name, kern, plain in dist_cases(
+                            sd, blocks[r], lm, wc, woff, w, r * (z // P)):
+                        out, ref = kern(), plain()
+                        check_close(name, out, ref, 0.0, err, [],
+                                    f"lm={lm} P={P} rank={r} {dtype}")
+                        outs[name].append(out)
+                for name in KERNELS_DIST:
+                    got = torch.cat(outs[name])
+                    want = single[name]
+                    n = want.shape[0]
+                    if not (torch.equal(got[:n], want)
+                            and not got[n:].any()):
+                        raise AssertionError(
+                            f"{name} stitched over {P} ranks at lm={lm} "
+                            f"{dtype} is not the single-device kernel")
+                parts.append(f"P={P} ({P} x ({z // P}, {lm}, {lm})): "
+                             "5 kernels bitwise, stitched == single-device")
+            print(f"phase 23 lm={lm} {str(dtype)[6:]}: " + "; ".join(parts))
+            del v, f, c, single, blocks, outs
+            torch.cuda.empty_cache()
+    counts = kcuda.launch_counts()
+    missing = [k for k in KERNELS_DIST if counts.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"launch counters did not move: {missing}")
+
+    timed = {}
+    for mz, lm in DIST_TIMED:
+        wc, woff = level_weights(mg, lm)
+        lmc = (lm + 1) // 2
+
+        def rand(*shape):
+            return torch.from_numpy(rng.standard_normal(shape).astype(
+                np.float32)).to(dev)
+
+        v, f = rand(mz, lm, lm), rand(mz, lm, lm)
+        blk = ((v, rand(2, lm, lm), rand(2, lm, lm)),
+               (f, rand(2, lm, lm), rand(2, lm, lm)))
+        blk += ((v, blk[0][1][1:].contiguous(), blk[0][2][:1].contiguous()),
+                (f, blk[1][1][1:].contiguous(), blk[1][2][:1].contiguous()),
+                (rand(mz // 2, lmc, lmc), None, rand(1, lmc, lmc)))
+        # an interior rank's block: z_base = mz
+        pairs = {name: (kern, plain) for name, kern, plain in
+                 dist_cases(sd, blk, lm, wc, woff, w, mz)}
+        n, nc = mz * lm * lm, (mz // 2) * lmc * lmc
+        shape = {k: (n, nc if k in ("restrict_residual_pt_dist",
+                                    "prolong_linear_dist") else 0)
+                 for k in pairs}
+        recs = records if lm == TIMED_LM else {}
+        time_pairs(torch, pairs, err, recs,
+                   f"phase 23 time at ({mz}, {lm}, {lm}) f32", shape)
+        if recs is not records:
+            timed[f"{mz}x{lm}x{lm}"] = {k: {key: r[key] for key in (
+                "ms", "plain_ms", "bound_ms", "bound_by")}
+                for k, r in recs.items()}
+        del v, f, blk, pairs
+        torch.cuda.empty_cache()
+    return timed
+
+
+def dist_record(res):
+    """count, converged and history of a distributed run, picklable."""
+    k = count_of(res)
+    return {"count": k, "converged": res.converged,
+            "hist": res.res_hist[:k].double().cpu().numpy().tolist()}
+
+
+def dist_rank(rank, world_size, device, out_dir):
+    """One rank of phases 24 and 25 (run_ranks, gloo, every rank on the
+    card): the 64^3 distributed solve on ranks 0-1 on the card and on the
+    CPU, then the 512^3 distributed path on all ranks."""
+    import torch
+    import torch.distributed as dist
+
+    import multigrid_dolfinx_tpu_torch as mg
+
+    torch.set_num_threads(2)
+    out = {}
+
+    # phase 24: 64^3 f32 over ranks 0-1, card and CPU
+    pair = dist.new_group([0, 1])
+    if rank < 2:
+        small = {}
+        for dev in ("cuda", "cpu"):
+            cfg = mg.models.poisson3d(
+                finest_level=3, coarsest_level=0, coarsest_elements=8,
+                dtype="float32", cycle=cycle_spec(mg, RTOL_DIST_SMALL["solve"]))
+            hier, fn = mg.build_halo_solver3d(cfg, pair, dev)
+            r = fn(hier)
+            gcfg = mg.models.poisson3d(
+                finest_level=3, coarsest_level=0, coarsest_elements=8,
+                dtype="float32", cycle=cycle_spec(mg, RTOL_DIST_SMALL["mgcg"]))
+            _, gfn = mg.build_halo_mgcg3d(gcfg, pair, dev, hierarchy=hier)
+            small[dev] = {"solve": dist_record(r),
+                          "mgcg": dist_record(gfn(hier)),
+                          "u": mg.gather_solution(hier, r.u, pair).cpu()}
+        out["small"] = {"du": float((small["cuda"]["u"].double()
+                                     - small["cpu"]["u"].double()).abs().max()),
+                        **{dev: {k: small[dev][k] for k in ("solve", "mgcg")}
+                           for dev in small}}
+    dist.barrier()
+
+    # phase 25: 512^3 f32 over all ranks, the main path
+    u, out["main"] = dist_main(torch, dist, mg)
+    torch.save(u.cpu(), Path(out_dir) / f"u_rank{rank}.pt")
+    return out
+
+
+def dist_main(torch, dist, mg, finest_level=6):
+    """The distributed 3D main path on this rank (every rank of the
+    default group calls it, its card current): poisson3d(finest_level,
+    coarsest_level=0, coarsest_elements=8) f32, FMG + V(2,2) red-black to
+    rtol 1e-8, (G2) MG-CG from FMG and an FMG-started V(2,2) Jacobi solve
+    to 1e-6 on the same hierarchy, with the launches of that run, then 10
+    V-cycles timed plain and with the split instrumented (kernel time
+    from CUDA events around every kernel wrapper call; halo and
+    collective wall time around every SlabComm call, each after a device
+    sync so that no kernel time lands in it) and one halo exchange timed
+    alone.  Returns (this rank's slab of u, a picklable record)."""
+    import time as _time
+
+    from multigrid_dolfinx_tpu_torch.ops import cuda as kcuda
+    from multigrid_dolfinx_tpu_torch.ops import dispatch
+    from multigrid_dolfinx_tpu_torch.parallel.comm import SlabComm
+
+    cyc = cycle_spec(mg, 1e-8)
+    cfg = mg.models.poisson3d(finest_level=finest_level, coarsest_level=0,
+                              coarsest_elements=8, dtype="float32", cycle=cyc)
+    jcyc = mg.CycleSpec(nu1=2, nu2=2, smoother="jacobi", restriction="pt",
+                        tol=0.0, rtol=1e-6, max_cycles=40, track_error=False)
+    jcfg = mg.models.poisson3d(finest_level=finest_level, coarsest_level=0,
+                               coarsest_elements=8, dtype="float32",
+                               cycle=jcyc)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kcuda.reset_launch_counts()
+    t0 = _time.perf_counter()
+    hier, fn = mg.build_halo_solver3d(cfg)
+    torch.cuda.synchronize()
+    t1 = _time.perf_counter()
+    res = fn(hier)
+    torch.cuda.synchronize()
+    t2 = _time.perf_counter()
+    _, gfn = mg.build_halo_mgcg3d(cfg, hierarchy=hier)
+    cg = gfn(hier)
+    _, jfn = mg.build_halo_solver3d(jcfg, hierarchy=hier)
+    jres = jfn(hier)
+    torch.cuda.synchronize()
+    counts = {k: n for k, n in kcuda.launch_counts().items() if n}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    _, cfn = mg.build_halo_cycler3d(cfg, 10, hierarchy=hier)
+
+    def ten():
+        dist.barrier()
+        torch.cuda.synchronize()
+        s = _time.perf_counter()
+        cfn(hier, res.u)
+        torch.cuda.synchronize()
+        return (_time.perf_counter() - s) * 1e3
+
+    cfn(hier, res.u)
+    plain_ms = ten()
+    events, comm_s, comm_calls = [], [0.0], [0]
+    kept = {}
+
+    def kernel_timed(fn):
+        def run(*a, **k):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            o = fn(*a, **k)
+            e1.record()
+            events.append((e0, e1))
+            return o
+        return run
+
+    def comm_timed(fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            s = _time.perf_counter()
+            o = fn(*a, **k)
+            comm_s[0] += _time.perf_counter() - s
+            comm_calls[0] += 1
+            return o
+        return run
+
+    for name in dir(dispatch):
+        obj = getattr(dispatch, name)
+        if callable(obj) and getattr(obj, "__module__", "") == dispatch.__name__ \
+                and not name.startswith("_") and name not in (
+                    "const7_weights", "const5_ok", "require_const5"):
+            kept[(dispatch, name)] = obj
+            setattr(dispatch, name, kernel_timed(obj))
+    for name in ("exchange", "gather_z", "sum_scalar"):
+        kept[(SlabComm, name)] = getattr(SlabComm, name)
+        setattr(SlabComm, name, comm_timed(getattr(SlabComm, name)))
+    try:
+        split_ms = ten()
+    finally:
+        for (obj, name), fn0 in kept.items():
+            setattr(obj, name, fn0)
+    kernel_ms = sum(a.elapsed_time(b) for a, b in events)
+    # one halo exchange alone on the finest slab, in the cycle's two kinds
+    comm = SlabComm()
+
+    def exchange_ms(fn, reps=20):
+        dist.barrier()
+        torch.cuda.synchronize()
+        s = _time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (_time.perf_counter() - s) * 1e3 / reps
+
+    exchange = {"v 1-deep": exchange_ms(lambda: comm.halos(res.u, 1)),
+                "v 2-deep": exchange_ms(lambda: comm.halos(res.u, 2))}
+    lm = hier.plan.lms[-1]
+    zb = hier.z_base(hier.num_levels - 1)
+    mid = lm // 2
+    u_mid = (float(res.u[mid - zb, mid, mid])
+             if zb <= mid < zb + res.u.shape[0] else None)
+    return res.u, {
+        "build_s": t1 - t0, "solve_s": t2 - t1, "solve": dist_record(res),
+        "mgcg": dist_record(cg), "jacobi": dist_record(jres), "u_mid": u_mid,
+        "counts": counts, "peak_gb": peak_gb,
+        "ms_per_vcycle": plain_ms / 10, "instrumented_ms": split_ms / 10,
+        "kernel_ms": kernel_ms / 10, "comm_ms": comm_s[0] * 1e3 / 10,
+        "comm_calls": comm_calls[0] // 10, "exchange_ms": exchange,
+        "shard_from": hier.plan.shard_from,
+        "mz": hier.plan.mz(hier.num_levels - 1)}
+
+
+def same_run(np, a, b):
+    """Two ranks' records of one run: the same count, flag and history
+    bits (NaN where the history is NaN)."""
+    return ((a["count"], a["converged"]) == (b["count"], b["converged"])
+            and np.array_equal(a["hist"], b["hist"], equal_nan=True))
+
+
+def phase_dist(torch, np, mg, card, main, out_dir):
+    """Phases 24 and 25 in one spawn of DIST_RANKS ranks on the card over
+    gloo (the library is built: phase 2)."""
+    import shutil
+
+    slabs = out_dir / "halo3d_slabs"
+    slabs.mkdir(parents=True, exist_ok=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    try:
+        ranks = mg.run_ranks(dist_rank, DIST_RANKS, "gloo", "cuda",
+                             args=(str(slabs),), timeout=DIST_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        u_p = torch.cat([torch.load(slabs / f"u_rank{r}.pt")
+                         for r in range(DIST_RANKS)])
+    finally:
+        shutil.rmtree(slabs, ignore_errors=True)
+
+    # phase 24
+    small = ranks[0]["small"]
+    if not all(same_run(np, ranks[1]["small"][dev][kind], small[dev][kind])
+               for dev in ("cuda", "cpu") for kind in ("solve", "mgcg")):
+        raise AssertionError("ranks 0 and 1 disagree on the 64^3 run")
+    for kind in ("solve", "mgcg"):
+        g, c = small["cuda"][kind], small["cpu"][kind]
+        hg, hc = np.array(g["hist"]), np.array(c["hist"])
+        ok = (g["count"] == c["count"] and g["converged"] and c["converged"]
+              and np.all(np.abs(hg - hc) <= 1e-5 * np.abs(hc)))
+        print(f"phase 24 64^3 f32 P=2 {kind}: card {g['count']}, cpu "
+              f"{c['count']} (converged {g['converged']}/{c['converged']}); "
+              f"res_hist card {hg.tolist()} cpu {hc.tolist()}")
+        if not ok:
+            raise AssertionError(f"64^3 distributed {kind}: card and CPU "
+                                 "differ")
+    print(f"phase 24 max|u_card-u_cpu| {small['du']:.3e}")
+
+    # phase 25
+    runs = [r["main"] for r in ranks]
+    m = runs[0]
+    for other in runs[1:]:
+        for key in ("solve", "mgcg", "jacobi"):
+            if not same_run(np, other[key], m[key]):
+                raise AssertionError(f"ranks disagree on the {key} run")
+    lm = TIMED_LM
+    u_p = u_p[:lm]
+    u_mid = next(r["u_mid"] for r in runs if r["u_mid"] is not None)
+    du = float((u_p - KEPT["u_main"]).abs().max())
+    counts = {k: sum(r["counts"].get(k, 0) for r in runs)
+              for k in set().union(*(r["counts"] for r in runs))}
+    print(f"phase 25 512^3 f32 over {DIST_RANKS} ranks (gloo, one card, "
+          f"shard_from {m['shard_from']}, {m['mz']} finest slabs a rank): "
+          f"build {max(r['build_s'] for r in runs):.3f} s, solve "
+          f"{max(r['solve_s'] for r in runs):.3f} s, {m['solve']['count']} "
+          f"cycles after FMG (single-device {main['cycles']}), res_hist "
+          f"{m['solve']['hist']}, u(1/2,1/2,1/2)={u_mid!r}, "
+          f"max|u_P-u_1| {du!r}; (G2) MG-CG {m['mgcg']['count']} iterations "
+          f"(converged {m['mgcg']['converged']}); Jacobi V(2,2) to 1e-6 "
+          f"{m['jacobi']['count']} cycles (converged "
+          f"{m['jacobi']['converged']}); spawn + run {wall:.1f} s")
+    print("phase 25 per rank: " + "; ".join(
+        f"rank {i}: peak {r['peak_gb']:.2f} GB, launches "
+        f"{ {k: r['counts'].get(k, 0) for k in KERNELS_DIST} }"
+        for i, r in enumerate(runs)))
+    print("phase 25 V-cycle: " + "; ".join(
+        f"rank {i}: {r['ms_per_vcycle']:.4f} ms (instrumented "
+        f"{r['instrumented_ms']:.4f}: kernels {r['kernel_ms']:.4f}, halo and "
+        f"collectives {r['comm_ms']:.4f} in {r['comm_calls']} calls)"
+        for i, r in enumerate(runs)) + f" on [{card}]")
+    print("phase 25 one exchange alone on the finest slab (ms): " + "; ".join(
+        f"rank {i}: " + ", ".join(f"{k} {t:.4f}"
+                                  for k, t in r["exchange_ms"].items())
+        for i, r in enumerate(runs)))
+    if not m["solve"]["converged"] or m["solve"]["count"] != main["cycles"]:
+        raise AssertionError("the distributed 512^3 solve did not take the "
+                             "single-device count")
+    if not abs(u_mid - 2.5) < 1e-2:
+        raise AssertionError(f"u(1/2,1/2,1/2) = {u_mid} is not 2.5 +- 1e-2")
+    if du != 0.0:
+        raise AssertionError(f"max|u_P - u_1| = {du} (0 expected)")
+    if not m["mgcg"]["converged"] or not m["jacobi"]["converged"]:
+        raise AssertionError("the distributed MG-CG or Jacobi run did not "
+                             "converge")
+    missing = [k for k in KERNELS_DIST if counts.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"distributed path did not launch {missing}")
+    return counts, {"small": small, "ranks": runs, "u_mid": u_mid,
+                    "max_abs_du": du, "wall_s": wall}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=ROOT / "build" / "chip_smoke",
@@ -2332,6 +2806,12 @@ def main() -> int:
               "a CUDA card")
         return 1
     phase = "import"
+    marks = []              # (phase, start time) for the per-phase seconds
+
+    def enter(name):
+        marks.append((name, time.perf_counter()))
+        return name
+
     try:
         import numpy as np
 
@@ -2340,56 +2820,63 @@ def main() -> int:
 
         if "jax" in sys.modules:
             raise AssertionError("jax was imported")
-        phase = "1 device"
+        phase = enter("1 device")
         name, card = phase_device(torch)
-        phase = "2 build"
+        phase = enter("2 build")
         out_dir.mkdir(parents=True, exist_ok=True)
         build_s = phase_build(build, out_dir)
         records = {}
-        phase = "3 kernels"
+        phase = enter("3 kernels")
         phase_kernels(torch, np, mg, records)
-        phase = "4 slice 64^3"
+        phase = enter("4 slice 64^3")
         phase_small_slice(torch, np, mg)
-        phase = "5 main path 512^3"
+        phase = enter("5 main path 512^3")
         counts, main = phase_main(torch, np, mg, card)
-        phase = "6 kernels 2D"
+        phase = enter("6 kernels 2D")
         phase_kernels_2d(torch, np, records)
-        phase = "7 reference run"
+        phase = enter("7 reference run")
         counts_ref, reference = phase_reference(torch, np, mg)
-        phase = "8 2D 2049^2"
+        phase = enter("8 2D 2049^2")
         phase_2d_small(torch, np, mg)
-        phase = "9 2D main path 8193^2"
+        phase = enter("9 2D main path 8193^2")
         counts_2d, main_2d = phase_main_2d(torch, np, mg, card)
-        phase = "10 kernels K10-K12"
+        phase = enter("10 kernels K10-K12")
         phase_kernels_slice3(torch, np, mg, records)
-        phase = "11 slice 3 at 64^3"
+        phase = enter("11 slice 3 at 64^3")
         phase_small_slice3(torch, np, mg)
-        phase = "12 BASELINE configs 3 and 5 at 512^3"
+        phase = enter("12 BASELINE configs 3 and 5 at 512^3")
         counts_s3, slice3 = phase_slice3(torch, np, mg, card)
-        phase = "13 fused coarse tail"
+        phase = enter("13 fused coarse tail")
         tail = phase_tail(torch, np, mg, records)
-        phase = "14 kernels K15-K18"
+        phase = enter("14 kernels K15-K18")
         planes = phase_planes_kernels(torch, np, mg, records)
-        phase = "15 var kappa at 64^3"
+        phase = enter("15 var kappa at 64^3")
         small_var = phase_small_var(torch, np, mg)
-        phase = "16 var kappa at 384^3"
+        phase = enter("16 var kappa at 384^3")
         counts_var, var = phase_var(torch, np, mg, card, records)
-        phase = "17 kernels K19-K21"
+        phase = enter("17 kernels K19-K21")
         p2_kernels = phase_p2_kernels(torch, np, mg, records)
-        phase = "18 P2 at the 65^3 lattice"
+        phase = enter("18 P2 at the 65^3 lattice")
         small_p2 = phase_small_p2(torch, np, mg)
-        phase = "19 P2 at the 513^3 lattice"
+        phase = enter("19 P2 at the 513^3 lattice")
         counts_p2, p2 = phase_p2(torch, np, mg, card)
-        phase = "20 kernels K22-K24"
+        phase = enter("20 kernels K22-K24")
         planes2 = phase_planes2_kernels(torch, np, mg, records)
-        phase = "21 2D var kappa at 2049^2"
+        phase = enter("21 2D var kappa at 2049^2")
         small_var2d = phase_small_var2d(torch, np, mg)
-        phase = "22 2D var kappa at 8193^2"
+        phase = enter("22 2D var kappa at 8193^2")
         counts_var2d, var2d = phase_var2d(torch, np, mg, card, records)
+        phase = enter("23 kernels K25-K29")
+        dist_kernels = phase_dist_kernels(torch, np, mg, records)
+        phase = enter("24-25 distributed 3D")
+        counts_dist, dist3d = phase_dist(torch, np, mg, card, main, out_dir)
     except Exception:
         print(f"FAILED in phase {phase}:")
         traceback.print_exc(file=sys.stdout)
         return 1
+    marks.append(("end", time.perf_counter()))
+    phase_s = {a[0]: round(b[1] - a[1], 1) for a, b in zip(marks, marks[1:])}
+    print(f"phase seconds: {json.dumps(phase_s)}")
     # launches: each kernel's count in the main path that runs it
     for k, rec in records.items():
         rec["launches"] = (counts[k] if k in KERNELS_3D + KERNELS_TAIL else
@@ -2398,6 +2885,7 @@ def main() -> int:
                            counts_var[k] if k in KERNELS_PLANES else
                            counts_p2[k] if k in KERNELS_P2 else
                            counts_var2d[k] if k in KERNELS_PLANES2 else
+                           counts_dist[k] if k in KERNELS_DIST else
                            counts_2d[k])
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "build_s": build_s, "main": main,
@@ -2405,7 +2893,8 @@ def main() -> int:
          "tail": tail, "planes": planes, "var_64": small_var, "var": var,
          "p2_kernels": p2_kernels, "p2_65": small_p2, "p2": p2,
          "planes2": planes2, "var2d_2049": small_var2d, "var2d": var2d,
-         "kernels": list(records.values())}, indent=1))
+         "dist_kernels_1025": dist_kernels, "dist3d": dist3d,
+         "phase_s": phase_s, "kernels": list(records.values())}, indent=1))
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -29,7 +29,12 @@ Its slices so far:
     coefficient P2 path, models.poisson3d_p2): build_p2_hierarchy builds
     every level as a plane-free parity-table operator on the half-step
     lattice, smoothed by snap weighted Jacobi, with the same FMG,
-    tolerance loop and MG-CG.
+    tolerance loop and MG-CG;
+  * the distributed 3D solve (parallel.halo3d): the constant-coefficient
+    P1 path z-decomposed over the ranks of a torch.distributed process
+    group, each holding a z-slab of the finer levels, with halo exchange,
+    the coarse levels replicated, and the slab kernels K25-K29;
+    parallel.run_ranks spawns the ranks.
 On a CUDA device the hot ops run as hand-written Hopper kernels
 (ops/cuda, sources in csrc/); on the CPU they run as the kernels' plain
 PyTorch versions.  This package never imports JAX.
@@ -58,7 +63,10 @@ from .solver.fmg import (SolveResult, error_norm, fmg_solve, residual_norm,
 from .solver.krylov import CGResult, mgcg_solve, solve_mgcg
 from .solver.vcycle import vcycle
 from .utils.convert import hierarchy_from_numpy
-from . import models
+from .parallel import (build_halo_cycler3d, build_halo_mgcg3d,
+                       build_halo_resume3d, build_halo_solver3d,
+                       gather_solution, run_ranks)
+from . import models, parallel
 
 __version__ = "0.1.0"
 
@@ -86,6 +94,13 @@ __all__ = [
     "mgcg_solve",
     "solve_mgcg",
     "hierarchy_from_numpy",
+    "build_halo_solver3d",
+    "build_halo_cycler3d",
+    "build_halo_mgcg3d",
+    "build_halo_resume3d",
+    "gather_solution",
+    "run_ranks",
     "models",
+    "parallel",
     "__version__",
 ]

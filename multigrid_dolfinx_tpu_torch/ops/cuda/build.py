@@ -23,7 +23,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
 SOURCES = ("stencil3d.cu", "stencil3d_cheby.cu", "stencil3d_tail.cu",
            "stencil3d_norm.cu", "stencil3d_planes.cu", "stencil3d_p2.cu",
-           "stencil2d.cu", "stencil2d_planes.cu")
+           "stencil2d.cu", "stencil2d_planes.cu", "stencil3d_dist.cu")
 HEADERS = ("stencil3d.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -82,6 +82,16 @@ SIGNATURES = {
     "mg_restrict_pt_2d_f64": "ppiip",
     "mg_prolong_linear_2d_f32": "ppiip",
     "mg_prolong_linear_2d_f64": "ppiip",
+    "mg_rb_sweep_dist_f32": "ppppppppiiiffp",
+    "mg_rb_sweep_dist_f64": "ppppppppiiiddp",
+    "mg_jacobi_sweep_dist_f32": "pppppppiiiffffp",
+    "mg_jacobi_sweep_dist_f64": "pppppppiiiddddp",
+    "mg_residual_dist_f32": "pppppppiiiffp",
+    "mg_residual_dist_f64": "pppppppiiiddp",
+    "mg_restrict_residual_pt_dist_f32": "pppppppiiiiffp",
+    "mg_restrict_residual_pt_dist_f64": "pppppppiiiiddp",
+    "mg_prolong_linear_dist_f32": "ppppiiiip",
+    "mg_prolong_linear_dist_f64": "ppppiiiip",
 }
 
 _LIB = None

@@ -11,8 +11,8 @@ from __future__ import annotations
 import torch
 
 from .cuda import (stencil2d, stencil2d_planes, stencil3d, stencil3d_cheby,
-                   stencil3d_norm, stencil3d_p2, stencil3d_planes,
-                   stencil3d_tail)
+                   stencil3d_dist, stencil3d_norm, stencil3d_p2,
+                   stencil3d_planes, stencil3d_tail)
 from .cuda.stencil3d_planes import planes3_colors  # noqa: F401  (re-export)
 from .operators import StencilOperator
 
@@ -216,3 +216,42 @@ def prolong_linear_2d(c, lmf):
     if _on_cuda(c):
         return stencil2d.prolong_linear(c, lmf)
     return stencil2d.prolong_linear_ref(c, lmf)
+
+
+def rb_sweep_dist(v, f, vlo, vhi, flo, fhi, lm, wc, woff, z_base):
+    if _on_cuda(v):
+        return stencil3d_dist.rb_sweep_dist(v, f, vlo, vhi, flo, fhi, lm, wc,
+                                            woff, z_base)
+    return stencil3d_dist.rb_sweep_dist_ref(v, f, vlo, vhi, flo, fhi, lm, wc,
+                                            woff, z_base)
+
+
+def jacobi_sweep_dist(v, f, vlo, vhi, flo, fhi, lm, wc, woff, w, z_base):
+    if _on_cuda(v):
+        return stencil3d_dist.jacobi_sweep_dist(v, f, vlo, vhi, flo, fhi, lm,
+                                                wc, woff, w, z_base)
+    return stencil3d_dist.jacobi_sweep_dist_ref(v, f, vlo, vhi, flo, fhi, lm,
+                                                wc, woff, w, z_base)
+
+
+def residual_dist(v, f, vlo, vhi, flo, fhi, lm, wc, woff, z_base):
+    if _on_cuda(v):
+        return stencil3d_dist.residual_dist(v, f, vlo, vhi, flo, fhi, lm, wc,
+                                            woff, z_base)
+    return stencil3d_dist.residual_dist_ref(v, f, vlo, vhi, flo, fhi, lm, wc,
+                                            woff, z_base)
+
+
+def restrict_residual_pt_dist(v, f, vlo, vhi, flo, fhi, lmf, lmc, wc, woff,
+                              z_base):
+    if _on_cuda(v):
+        return stencil3d_dist.restrict_residual_pt_dist(
+            v, f, vlo, vhi, flo, fhi, lmf, lmc, wc, woff, z_base)
+    return stencil3d_dist.restrict_residual_pt_dist_ref(
+        v, f, vlo, vhi, flo, fhi, lmf, lmc, wc, woff, z_base)
+
+
+def prolong_linear_dist(c, chi, lmf, z_base, v=None):
+    if _on_cuda(c):
+        return stencil3d_dist.prolong_linear_dist(c, chi, lmf, z_base, v)
+    return stencil3d_dist.prolong_linear_dist_ref(c, chi, lmf, z_base, v)

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -206,8 +206,8 @@ def _finish(config: SolverConfig, levels, asm0, grids, dtype,
     )
 
 
-def build_lean_hierarchy(config: SolverConfig,
-                         device="cuda") -> Hierarchy:
+def build_lean_hierarchy(config: SolverConfig, device="cuda",
+                         cut: Optional[Callable] = None) -> Hierarchy:
     """Scale-mode hierarchy for constant-coefficient P1 on `device` (the
     CUDA card by default; without one this raises).
 
@@ -215,7 +215,10 @@ def build_lean_hierarchy(config: SolverConfig,
     interior masks from index arithmetic) and b, g built on the device
     from a tiny assembled prototype (fem.fast_const); the mass operator
     is a class table (9 x 9 in 2D, 15 x 27 in 3D) and the error norm is
-    static metadata.  Only b and g cost device memory per level."""
+    static metadata.  Only b and g cost device memory per level.
+    cut(level index, array), where given, replaces each level's b and g
+    as soon as they are built (the distributed build keeps a rank's
+    z-slab of them)."""
     check_problem(config)
     device = resolve_device(device)
     dtype = DTYPES[config.dtype]
@@ -225,9 +228,11 @@ def build_lean_hierarchy(config: SolverConfig,
     h0 = 1.0 / template.proto_n
 
     levels = []
-    for g in grids:
+    for li, g in enumerate(grids):
         b, gdir = device_level_arrays(template, g, config.problem, dtype,
                                       device)
+        if cut is not None:
+            b, gdir = cut(li, b), cut(li, gdir)
         scale = (g.h / h0) ** (ndim - 2)   # stiffness scales as h^(d-2)
         w_level = tuple(w * scale for w in template.weights)
         levels.append(const_level(template.offsets, w_level, g, b, gdir,

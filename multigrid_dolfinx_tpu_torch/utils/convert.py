@@ -32,6 +32,12 @@ carries is not read, the centre plane gives it.  The Chebyshev degree is the
 config's and the window ratio 4.0 in both packages, so a JAX lean
 Chebyshev hierarchy carried across this way with its lmax gives the same
 Chebyshev window, hence the same solve.
+
+`halo_slab_from_numpy` cuts a level's global numpy array (the logical
+box, or one padded in z as the JAX package's build_lean_hierarchy(...,
+pad_points=plan) leaves it) into a rank's z-slab under the distributed
+plan (parallel.halo3d.ZPlan), as the port's distributed build lays it
+out: rows past the level's last plane are zero.
 """
 from __future__ import annotations
 
@@ -112,3 +118,21 @@ def hierarchy_from_numpy(arrays: dict, config: SolverConfig,
     eq = error_quadrature(grid_f, config.problem)
     return Hierarchy(levels=tuple(levels), coarse=coarse, M_fine=M_fine,
                      err_quad=eq)
+
+
+def halo_slab_from_numpy(a: np.ndarray, plan, li: int, rank: int) -> np.ndarray:
+    """Rank `rank`'s (mz, lm, lm) z-slab of level li's global array `a`
+    under `plan` (a parallel.halo3d.ZPlan); a replicated level (li <
+    plan.shard_from) gives the whole (lm, lm, lm) box.  y and x are
+    cropped to lm, rows past lm - 1 are zero."""
+    lm = plan.lms[li]
+    a = np.asarray(a)[:lm, :lm, :lm]
+    if li < plan.shard_from:
+        return a.copy()
+    mz = plan.mz(li)
+    out = np.zeros((mz, lm, lm), dtype=a.dtype)
+    lo = rank * mz
+    hi = min(lo + mz, lm)
+    if hi > lo:
+        out[:hi - lo] = a[lo:hi]
+    return out

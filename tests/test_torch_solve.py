@@ -276,8 +276,8 @@ def test_port_never_imports_jax():
     """A fresh interpreter importing the port (and running a tiny 3D lean
     solve in f64 and in f32, through the fused tail, a 2D assembled solve,
     MG-CG with 3D Jacobi, a Chebyshev solve, a variable-kappa Galerkin
-    solve, a P2 solve and MG-CG, a 2D variable-kappa solve and MG-CG)
-    has no jax in sys.modules.  A subprocess: this test file imports
+    solve, a P2 solve and MG-CG, a 2D variable-kappa solve and MG-CG, and
+    a one-rank distributed solve over gloo) has no jax in sys.modules.  A subprocess: this test file imports
     jax."""
     code = (
         "import sys, torch\n"
@@ -325,6 +325,17 @@ def test_port_never_imports_jax():
         "r2v = T.solve(h2, cyc)\n"
         "assert r2v.converged and r2v.u.shape == (17, 17)\n"
         "assert T.mgcg_solve(h2, cyc).converged\n"
+        "import tempfile, torch.distributed as dist\n"
+        "from multigrid_dolfinx_tpu_torch.parallel import halo3d\n"
+        "from multigrid_dolfinx_tpu_torch.ops.cuda import stencil3d_dist\n"
+        "store = tempfile.mkdtemp()\n"
+        "dist.init_process_group('gloo', init_method=f'file://{store}/s',"
+        " rank=0, world_size=1)\n"
+        "hd, fn = halo3d.build_halo_solver3d(cfg, device='cpu')\n"
+        "rd = fn(hd)\n"
+        "assert rd.converged and rd.num_cycles == r.num_cycles\n"
+        "assert torch.equal(halo3d.gather_solution(hd, rd.u), r.u)\n"
+        "dist.destroy_process_group()\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('multigrid_dolfinx_tpu.') "
         " or m == 'multigrid_dolfinx_tpu']\n"
