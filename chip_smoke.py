@@ -130,15 +130,37 @@ Phases (each prints one line; any failure exits nonzero with no result):
      events) and halo / collective wall time, one halo exchange timed
      alone; each rank's slab comes back through a file and must equal
      phase 5's single-device u exactly, in the same cycle count, with
-     u(1/2,1/2,1/2) within 1e-2 of 2.5.
-Each main path (5, 7, 9, each run of 12, 16, 19, 22 and 25) sets the launch counts
+     u(1/2,1/2,1/2) within 1e-2 of 2.5;
+ 26. the row-strip kernels K30-K34 of the distributed 2D path (red-black,
+     Jacobi, residual, P^T restriction, prolongation + correction)
+     against their plain versions on every rank's strip of global lm in
+     DIST2D_LMS split over 2 and 4 ranks as the port's plan splits them
+     (edge and interior ranks, padding rows, a rank of 65^2 over 4 that
+     holds only padding), f32 and f64, bitwise; the strips' outputs
+     stitched together bitwise the single-device K6, K5, K7, K8 and
+     v + K9 on the same global data; kernel / plain / library times at a
+     rank's finest strip of (D2) in f32;
+ 27. the distributed 2D solve at 2049^2 f32 over 2 ranks (gloo, both on
+     the card) against the same ranks on the CPU with the plain versions
+     (V(2,2) red-black and Jacobi to RTOL_2D: equal counts, histories
+     within 1e-5, u bitwise), and the reference's run distributed over
+     the 2 ranks on the card: exactly 63 cycles;
+ 28. (D2), the distributed 2D path at full width, 8193^2 f32 (11 levels)
+     over DIST_RANKS ranks sharing the card over gloo: FMG + V(2,2)
+     red-black to RTOL_2D and a Jacobi V(2,2) solve beside the same
+     solve single-device on the card, with K30-K34 launches, build
+     seconds and peak memory per rank, 10 V-cycles timed and split into
+     kernel and halo / collective time, one exchange timed alone; each
+     rank's strip comes back through a file and must equal phase 9's u
+     (and the single-device Jacobi u) exactly, in the same cycle count.
+Each main path (5, 7, 9, each run of 12, 16, 19, 22, 25 and 28) sets the launch counts
 to 0 just before it runs and reads them just after.  Each kernel's record
 carries its time, its plain version's, the time of one PyTorch call that
 computes the same function where there is one (library_ms, else null;
 never called by the port) and its bound: the larger of the bytes it must
 move over 3.35 TB/s and its f32 operations over 67 TFLOP/s (H100 SXM).
 Before them a line gives each phase's wall seconds.  The second-to-last
-line is the kernels' JSON record (K1-K29, each with the launches of the
+line is the kernels' JSON record (K1-K34, each with the launches of the
 main path that runs it), the last line {"ok": true,
 "device": {...}}.  nvcc's report and the full record go to --out (default
 build/chip_smoke/, under the checkout).  Imports nothing of JAX.
@@ -198,6 +220,14 @@ TPU_KERNELS = {
         "multigrid_dolfinx_tpu/ops/pallas/stencil3d_dist.py:446",
     "prolong_linear_dist":
         "multigrid_dolfinx_tpu/ops/pallas/stencil3d_dist.py:576",
+    "rb_sweep_dist_2d": "multigrid_dolfinx_tpu/ops/pallas/stencil2d_dist.py:152",
+    "jacobi_sweep_dist_2d":
+        "multigrid_dolfinx_tpu/ops/pallas/stencil2d_dist.py:212",
+    "residual_dist_2d": "multigrid_dolfinx_tpu/ops/pallas/stencil2d_dist.py:265",
+    "restrict_pt_dist_2d":
+        "multigrid_dolfinx_tpu/ops/pallas/stencil2d_dist.py:335",
+    "prolong_add_dist_2d":
+        "multigrid_dolfinx_tpu/ops/pallas/stencil2d_dist.py:406",
 }
 KERNELS_3D = ("rb_sweep", "restrict_residual_pt", "prolong_linear_add",
               "prolong_linear", "residual_tet_quad")
@@ -229,7 +259,11 @@ DIST_LMS = (17, 65, 257, 513)
 # distributed run) and 1024^3 over 8 (the JAX package's production shape)
 DIST_TIMED = ((136, 513), (136, 1025))
 DIST_RANKS = 4
-DIST_TIMEOUT_S = 600      # the spawned ranks' limit (phases 24-25)
+DIST_TIMEOUT_S = 600      # the spawned ranks' limit (phases 24-25, 27-28)
+KERNELS_DIST2D = ("rb_sweep_dist_2d", "jacobi_sweep_dist_2d",
+                  "residual_dist_2d", "restrict_pt_dist_2d",
+                  "prolong_add_dist_2d")
+DIST2D_LMS = (17, 65, 1025, 8193)
 # the 64^3 distributed run, card vs CPU: rbgs to 1e-7 (phase 4's rtol) and
 # MG-CG to 1e-6 (1e-7 is below the f32 floor for MG-CG at 64^3)
 RTOL_DIST_SMALL = {"solve": 1e-7, "mgcg": 1e-6}
@@ -271,6 +305,8 @@ SOURCES = {
        for k in KERNELS_PLANES2},
     **{k: "multigrid_dolfinx_tpu_torch/csrc/stencil3d_dist.cu"
        for k in KERNELS_DIST},
+    **{k: "multigrid_dolfinx_tpu_torch/csrc/stencil2d_dist.cu"
+       for k in KERNELS_DIST2D},
 }
 # H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s and f32 FLOP/s
 # outside the tensor cores.
@@ -291,7 +327,10 @@ OPS = {"rb_sweep": 8, "restrict_residual_pt": 9, "restrict_residual_pt_c": 40,
        "residual": 9, "jacobi_sweep": 11, "cheby_step": 14,
        "rb_sweep_dist": 8, "jacobi_sweep_dist": 11, "residual_dist": 9,
        "restrict_residual_pt_dist": 9, "restrict_residual_pt_dist_c": 40,
-       "prolong_linear_dist": 4}
+       "prolong_linear_dist": 4, "rb_sweep_dist_2d": 5,
+       "jacobi_sweep_dist_2d": 8, "residual_dist_2d": 6,
+       "restrict_pt_dist_2d": 0, "restrict_pt_dist_2d_c": 13,
+       "prolong_add_dist_2d": 3}
 # f32 arrays of fine points each kernel reads or writes once (fine, coarse)
 ARRAYS = {"rb_sweep": (3, 0), "restrict_residual_pt": (2, 1),
           "prolong_linear": (1, 1), "prolong_linear_add": (2, 1),
@@ -304,7 +343,10 @@ ARRAYS = {"rb_sweep": (3, 0), "restrict_residual_pt": (2, 1),
           "p2_residual": (3, 0), "p2_jacobi_sweep": (3, 0),
           "p2_mass_quad": (1, 0), "rb_sweep_dist": (3, 0),
           "jacobi_sweep_dist": (3, 0), "residual_dist": (3, 0),
-          "restrict_residual_pt_dist": (2, 1), "prolong_linear_dist": (2, 1)}
+          "restrict_residual_pt_dist": (2, 1), "prolong_linear_dist": (2, 1),
+          "rb_sweep_dist_2d": (3, 0), "jacobi_sweep_dist_2d": (3, 0),
+          "residual_dist_2d": (3, 0), "restrict_pt_dist_2d": (1, 1),
+          "prolong_add_dist_2d": (2, 1)}
 RTOL_64 = {"C": 1e-7, "G1": 1e-6}     # above the f32 floor at 64^3
 # K1-K3 and K5-K9 must agree to 1e-6 of the reference's magnitude (bitwise is
 # expected: same association order, kernels built with --fmad=false); K4
@@ -315,8 +357,8 @@ TOL_NORM = 1e-5
 KEPT = {}
 
 
-def cycle_spec(mg, rtol):
-    return mg.CycleSpec(nu1=2, nu2=2, smoother="rbgs", restriction="pt",
+def cycle_spec(mg, rtol, smoother="rbgs"):
+    return mg.CycleSpec(nu1=2, nu2=2, smoother=smoother, restriction="pt",
                         tol=0.0, rtol=rtol, max_cycles=40, track_error=False)
 
 
@@ -837,6 +879,7 @@ def phase_main_2d(torch, np, mg, card):
     print(f"phase 9 f32: per-cycle check {check:.4f} ms; ||b||_M "
           f"{rn_ref!r}; relative residual of 6 more cycles {floor}")
     u32 = res.u
+    KEPT["u_2d"] = res.u.cpu()
     del hier, res, more
 
     hier64, res64, cyc64, _, run64 = solve_2d(torch, mg, "float64", 1e-7)
@@ -2571,59 +2614,27 @@ def dist_rank(rank, world_size, device, out_dir):
     return out
 
 
-def dist_main(torch, dist, mg, finest_level=6):
-    """The distributed 3D main path on this rank (every rank of the
-    default group calls it, its card current): poisson3d(finest_level,
-    coarsest_level=0, coarsest_elements=8) f32, FMG + V(2,2) red-black to
-    rtol 1e-8, (G2) MG-CG from FMG and an FMG-started V(2,2) Jacobi solve
-    to 1e-6 on the same hierarchy, with the launches of that run, then 10
-    V-cycles timed plain and with the split instrumented (kernel time
-    from CUDA events around every kernel wrapper call; halo and
+def split_cycle_times(torch, dist, cfn, hier, u):
+    """10 distributed V-cycles from u (cfn: a halo cycler of 10 cycles on
+    every rank), timed plain and with the split instrumented (kernel
+    time from CUDA events around every kernel wrapper call; halo and
     collective wall time around every SlabComm call, each after a device
-    sync so that no kernel time lands in it) and one halo exchange timed
-    alone.  Returns (this rank's slab of u, a picklable record)."""
+    sync so that no kernel time lands in it), and one halo exchange of
+    the finest block timed alone, 1- and 2-deep."""
     import time as _time
 
-    from multigrid_dolfinx_tpu_torch.ops import cuda as kcuda
     from multigrid_dolfinx_tpu_torch.ops import dispatch
     from multigrid_dolfinx_tpu_torch.parallel.comm import SlabComm
-
-    cyc = cycle_spec(mg, 1e-8)
-    cfg = mg.models.poisson3d(finest_level=finest_level, coarsest_level=0,
-                              coarsest_elements=8, dtype="float32", cycle=cyc)
-    jcyc = mg.CycleSpec(nu1=2, nu2=2, smoother="jacobi", restriction="pt",
-                        tol=0.0, rtol=1e-6, max_cycles=40, track_error=False)
-    jcfg = mg.models.poisson3d(finest_level=finest_level, coarsest_level=0,
-                               coarsest_elements=8, dtype="float32",
-                               cycle=jcyc)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    kcuda.reset_launch_counts()
-    t0 = _time.perf_counter()
-    hier, fn = mg.build_halo_solver3d(cfg)
-    torch.cuda.synchronize()
-    t1 = _time.perf_counter()
-    res = fn(hier)
-    torch.cuda.synchronize()
-    t2 = _time.perf_counter()
-    _, gfn = mg.build_halo_mgcg3d(cfg, hierarchy=hier)
-    cg = gfn(hier)
-    _, jfn = mg.build_halo_solver3d(jcfg, hierarchy=hier)
-    jres = jfn(hier)
-    torch.cuda.synchronize()
-    counts = {k: n for k, n in kcuda.launch_counts().items() if n}
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    _, cfn = mg.build_halo_cycler3d(cfg, 10, hierarchy=hier)
 
     def ten():
         dist.barrier()
         torch.cuda.synchronize()
         s = _time.perf_counter()
-        cfn(hier, res.u)
+        cfn(hier, u)
         torch.cuda.synchronize()
         return (_time.perf_counter() - s) * 1e3
 
-    cfn(hier, res.u)
+    cfn(hier, u)
     plain_ms = ten()
     events, comm_s, comm_calls = [], [0.0], [0]
     kept = {}
@@ -2665,7 +2676,6 @@ def dist_main(torch, dist, mg, finest_level=6):
         for (obj, name), fn0 in kept.items():
             setattr(obj, name, fn0)
     kernel_ms = sum(a.elapsed_time(b) for a, b in events)
-    # one halo exchange alone on the finest slab, in the cycle's two kinds
     comm = SlabComm()
 
     def exchange_ms(fn, reps=20):
@@ -2677,8 +2687,52 @@ def dist_main(torch, dist, mg, finest_level=6):
         torch.cuda.synchronize()
         return (_time.perf_counter() - s) * 1e3 / reps
 
-    exchange = {"v 1-deep": exchange_ms(lambda: comm.halos(res.u, 1)),
-                "v 2-deep": exchange_ms(lambda: comm.halos(res.u, 2))}
+    exchange = {"v 1-deep": exchange_ms(lambda: comm.halos(u, 1)),
+                "v 2-deep": exchange_ms(lambda: comm.halos(u, 2))}
+    return {"ms_per_vcycle": plain_ms / 10, "instrumented_ms": split_ms / 10,
+            "kernel_ms": kernel_ms / 10, "comm_ms": comm_s[0] * 1e3 / 10,
+            "comm_calls": comm_calls[0] // 10, "exchange_ms": exchange}
+
+
+def dist_main(torch, dist, mg, finest_level=6):
+    """The distributed 3D main path on this rank (every rank of the
+    default group calls it, its card current): poisson3d(finest_level,
+    coarsest_level=0, coarsest_elements=8) f32, FMG + V(2,2) red-black to
+    rtol 1e-8, (G2) MG-CG from FMG and an FMG-started V(2,2) Jacobi solve
+    to 1e-6 on the same hierarchy, with the launches of that run, then 10
+    V-cycles timed (split_cycle_times).  Returns (this rank's slab of u,
+    a picklable record)."""
+    import time as _time
+
+    from multigrid_dolfinx_tpu_torch.ops import cuda as kcuda
+
+    cyc = cycle_spec(mg, 1e-8)
+    cfg = mg.models.poisson3d(finest_level=finest_level, coarsest_level=0,
+                              coarsest_elements=8, dtype="float32", cycle=cyc)
+    jcyc = mg.CycleSpec(nu1=2, nu2=2, smoother="jacobi", restriction="pt",
+                        tol=0.0, rtol=1e-6, max_cycles=40, track_error=False)
+    jcfg = mg.models.poisson3d(finest_level=finest_level, coarsest_level=0,
+                               coarsest_elements=8, dtype="float32",
+                               cycle=jcyc)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kcuda.reset_launch_counts()
+    t0 = _time.perf_counter()
+    hier, fn = mg.build_halo_solver3d(cfg)
+    torch.cuda.synchronize()
+    t1 = _time.perf_counter()
+    res = fn(hier)
+    torch.cuda.synchronize()
+    t2 = _time.perf_counter()
+    _, gfn = mg.build_halo_mgcg3d(cfg, hierarchy=hier)
+    cg = gfn(hier)
+    _, jfn = mg.build_halo_solver3d(jcfg, hierarchy=hier)
+    jres = jfn(hier)
+    torch.cuda.synchronize()
+    counts = {k: n for k, n in kcuda.launch_counts().items() if n}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    _, cfn = mg.build_halo_cycler3d(cfg, 10, hierarchy=hier)
+    split = split_cycle_times(torch, dist, cfn, hier, res.u)
     lm = hier.plan.lms[-1]
     zb = hier.z_base(hier.num_levels - 1)
     mid = lm // 2
@@ -2687,10 +2741,7 @@ def dist_main(torch, dist, mg, finest_level=6):
     return res.u, {
         "build_s": t1 - t0, "solve_s": t2 - t1, "solve": dist_record(res),
         "mgcg": dist_record(cg), "jacobi": dist_record(jres), "u_mid": u_mid,
-        "counts": counts, "peak_gb": peak_gb,
-        "ms_per_vcycle": plain_ms / 10, "instrumented_ms": split_ms / 10,
-        "kernel_ms": kernel_ms / 10, "comm_ms": comm_s[0] * 1e3 / 10,
-        "comm_calls": comm_calls[0] // 10, "exchange_ms": exchange,
+        "counts": counts, "peak_gb": peak_gb, **split,
         "shard_from": hier.plan.shard_from,
         "mz": hier.plan.mz(hier.num_levels - 1)}
 
@@ -2791,6 +2842,361 @@ def phase_dist(torch, np, mg, card, main, out_dir):
                     "max_abs_du": du, "wall_s": wall}
 
 
+def dist2d_rows(mg, lm, P):
+    """The padded rows that parallel.halo's plan gives the lm^2 level over
+    P ranks: those of (D2)'s 8193^2 hierarchy where the level is sharded
+    there, else those of the hierarchy whose finest level it is."""
+    from multigrid_dolfinx_tpu_torch.parallel.halo3d import ZPlan
+
+    for lm_f in (TIMED_LM_2D, lm):
+        fl = (lm_f - 1).bit_length() - 4      # 8 * 2^fl elements per axis
+        plan = ZPlan.of(mg.models.poisson2d(
+            finest_level=fl, coarsest_level=0, coarsest_elements=8), P)
+        z = plan.zs[plan.lms.index(lm)]
+        if z is not None:
+            return z
+    raise AssertionError(f"no plan shards lm={lm} over {P} ranks")
+
+
+def dist2d_cases(sd, blk, lm, w, rb):
+    """(name, kernel call, plain call) of K30-K34 on one rank's strip."""
+    (v, vlo2, vhi2), (f, flo2, fhi2), (_, vlo1, vhi1), (df, _, _), \
+        (c, _, chi) = blk
+    lmc = (lm + 1) // 2
+    a2 = (v, f, vlo2, vhi2, flo2, fhi2)
+    return [
+        ("rb_sweep_dist_2d", lambda: sd.rb_sweep_dist_2d(*a2, lm, rb),
+         lambda: sd.rb_sweep_dist_2d_ref(*a2, lm, rb)),
+        ("jacobi_sweep_dist_2d",
+         lambda: sd.jacobi_sweep_dist_2d(v, df, vlo1, vhi1, lm, w, rb),
+         lambda: sd.jacobi_sweep_dist_2d_ref(v, df, vlo1, vhi1, lm, w, rb)),
+        ("residual_dist_2d",
+         lambda: sd.residual_dist_2d(v, f, vlo1, vhi1, lm, rb),
+         lambda: sd.residual_dist_2d_ref(v, f, vlo1, vhi1, lm, rb)),
+        ("restrict_pt_dist_2d",
+         lambda: sd.restrict_pt_dist_2d(v, vlo1, lm, lmc, rb),
+         lambda: sd.restrict_pt_dist_2d_ref(v, vlo1, lm, lmc, rb)),
+        ("prolong_add_dist_2d",
+         lambda: sd.prolong_add_dist_2d(c, chi[:1], lm, rb, v),
+         lambda: sd.prolong_add_dist_2d_ref(c, chi[:1], lm, rb, v)),
+    ]
+
+
+def phase_dist2d_kernels(torch, np, mg, records):
+    """K30-K34 against their plain versions on every rank's strip (edge
+    and interior ranks, P in {2, 4}) in f32 and f64 at lm in DIST2D_LMS,
+    split as the plan splits them (dist2d_rows; 65^2 over 4 leaves rank 3
+    all padding), bitwise; stitched over the ranks, bitwise the
+    single-device K6, K5, K7, K8 and v + K9 on the same global data (plan
+    padding rows 0); kernel, plain and bound times at a rank's finest
+    strip of (D2) in f32, and the library call's where there is one (K33:
+    a stride-2 conv2d, TF32 off; K34: F.interpolate plus the add)."""
+    from multigrid_dolfinx_tpu_torch.ops import cuda as kcuda
+    from multigrid_dolfinx_tpu_torch.ops.cuda import stencil2d as s2
+    from multigrid_dolfinx_tpu_torch.ops.cuda import stencil2d_dist as sd
+
+    rng = np.random.default_rng(SEED + 26)
+    dev = torch.device("cuda")
+    w = 2.0 / 3.0
+    err = {}
+    kcuda.reset_launch_counts()
+    for dtype in (torch.float32, torch.float64):
+        for lm in DIST2D_LMS:
+            lmc = (lm + 1) // 2
+            v, f = (torch.from_numpy(rng.standard_normal((lm, lm))).to(
+                dev, dtype) for _ in range(2))
+            c = torch.from_numpy(rng.standard_normal((lmc, lmc))).to(
+                dev, dtype)
+            df = torch.where(sd.strip_interior(lm, lm, 0, dev), f * 0.25, f)
+            single = {
+                "rb_sweep_dist_2d": s2.rb_sweep(v, f, lm),
+                "jacobi_sweep_dist_2d": s2.jacobi_sweep(v, df, lm, w),
+                "residual_dist_2d": s2.residual(v, f, lm),
+                "restrict_pt_dist_2d": s2.restrict_pt(v, lm, lmc),
+                "prolong_add_dist_2d": v + s2.prolong_linear(c, lm),
+            }
+            parts = []
+            for P in (2, 4):
+                z = dist2d_rows(mg, lm, P)
+                blocks = list(zip(
+                    dist_blocks(torch, v, P, z, 2),
+                    dist_blocks(torch, f, P, z, 2),
+                    dist_blocks(torch, v, P, z, 1),
+                    dist_blocks(torch, df, P, z, 1),
+                    dist_blocks(torch, c, P, z // 2, 1)))
+                outs = {k: [] for k in KERNELS_DIST2D}
+                for r in range(P):
+                    for name, kern, plain in dist2d_cases(
+                            sd, blocks[r], lm, w, r * (z // P)):
+                        out, ref = kern(), plain()
+                        check_close(name, out, ref, 0.0, err, [],
+                                    f"lm={lm} P={P} rank={r} {dtype}")
+                        outs[name].append(out)
+                for name in KERNELS_DIST2D:
+                    got = torch.cat(outs[name])
+                    want = single[name]
+                    n = want.shape[0]
+                    if not (torch.equal(got[:n], want)
+                            and not got[n:].any()):
+                        raise AssertionError(
+                            f"{name} stitched over {P} ranks at lm={lm} "
+                            f"{dtype} is not the single-device kernel")
+                parts.append(f"P={P} ({P} x ({z // P}, {lm})): 5 kernels "
+                             "bitwise, stitched == single-device")
+            print(f"phase 26 lm={lm} {str(dtype)[6:]}: " + "; ".join(parts))
+            del v, f, c, df, single, blocks, outs
+            torch.cuda.empty_cache()
+    counts = kcuda.launch_counts()
+    missing = [k for k in KERNELS_DIST2D if counts.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"launch counters did not move: {missing}")
+
+    # an interior rank's finest strip of (D2): row_base = m
+    lm = TIMED_LM_2D
+    lmc = (lm + 1) // 2
+    m = dist2d_rows(mg, lm, DIST_RANKS) // DIST_RANKS
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev)
+
+    v, f, df = rand(m, lm), rand(m, lm), rand(m, lm)
+    blk = ((v, rand(2, lm), rand(2, lm)), (f, rand(2, lm), rand(2, lm)))
+    blk += ((v, blk[0][1][1:].contiguous(), blk[0][2][:1].contiguous()),
+            (df, None, None), (rand(m // 2, lmc), None, rand(1, lmc)))
+    pairs = {name: (kern, plain) for name, kern, plain in
+             dist2d_cases(sd, blk, lm, w, m)}
+    n, nc = m * lm, (m // 2) * lmc
+    shape = {k: (n, nc if k in ("restrict_pt_dist_2d", "prolong_add_dist_2d")
+                 else 0) for k in pairs}
+    F = torch.nn.functional
+    c = blk[4][0]
+    w121 = torch.tensor([1.0, 2.0, 1.0], device=dev)
+    kern_pt = (0.25 * torch.outer(w121, w121))[None, None]
+    library = {
+        "restrict_pt_dist_2d": no_tf32(torch, lambda: F.conv2d(
+            v[None, None], kern_pt, stride=2, padding=1)),
+        "prolong_add_dist_2d": lambda: v + F.interpolate(
+            c[None, None], size=(m, lm), mode="bilinear",
+            align_corners=True)[0, 0],
+    }
+    time_pairs(torch, pairs, err, records,
+               f"phase 26 time at ({m}, {lm}) f32", shape, library)
+    del v, f, df, blk, pairs, c
+    torch.cuda.empty_cache()
+
+
+def dist2d_rank(rank, world_size, device, out_dir):
+    """One rank of phases 27 and 28 (run_ranks, gloo, every rank on the
+    card): the 2049^2 distributed solves on ranks 0-1 on the card and on
+    the CPU and the reference's run on the card, then (D2) on all
+    ranks."""
+    import torch
+    import torch.distributed as dist
+
+    import multigrid_dolfinx_tpu_torch as mg
+
+    torch.set_num_threads(2)
+    out = {}
+
+    # phase 27: 2049^2 f32 over ranks 0-1, card and CPU; the reference run
+    pair = dist.new_group([0, 1])
+    if rank < 2:
+        small = {}
+        for dev in ("cuda", "cpu"):
+            hier, runs = None, {}
+            for smoother in ("rbgs", "jacobi"):
+                cfg = mg.models.poisson2d(
+                    finest_level=8, coarsest_level=0, coarsest_elements=8,
+                    dtype="float32", cycle=cycle_spec(mg, RTOL_2D, smoother))
+                hier, fn = mg.build_halo_solver(cfg, pair, dev, hier)
+                r = fn(hier)
+                runs[smoother] = dist_record(r)
+                runs[smoother + " u"] = mg.gather_solution(hier, r.u,
+                                                           pair).cpu()
+            small[dev] = runs
+        ref = mg.models.poisson2d()
+        hier, fn = mg.build_halo_solver(ref, pair, "cuda")
+        out["small"] = {
+            "du": {k: float((small["cuda"][k + " u"].double()
+                             - small["cpu"][k + " u"].double()).abs().max())
+                   for k in ("rbgs", "jacobi")},
+            "reference": dist_record(fn(hier)),
+            **{dev: {k: small[dev][k] for k in ("rbgs", "jacobi")}
+               for dev in small}}
+    # first CUDA use on ranks 2-3 (module loads), outside phase 28's timed
+    # build
+    mg.build_lean_hierarchy(mg.models.poisson2d(
+        finest_level=1, coarsest_level=0, dtype="float32"))
+    dist.barrier()
+
+    # phase 28: (D2), 8193^2 f32 over all ranks
+    u, ju, out["main"] = dist2d_main(torch, dist, mg)
+    torch.save(u.cpu(), Path(out_dir) / f"u_rank{rank}.pt")
+    torch.save(ju.cpu(), Path(out_dir) / f"ju_rank{rank}.pt")
+    return out
+
+
+def dist2d_main(torch, dist, mg):
+    """(D2) on this rank (every rank of the default group calls it, its
+    card current): poisson2d(FINEST_LEVEL_2D, coarsest_level=0,
+    coarsest_elements=8) f32, FMG + V(2,2) red-black to RTOL_2D and an
+    FMG-started V(2,2) Jacobi solve to RTOL_2D on the same hierarchy,
+    with the launches of that run, then 10 V-cycles timed
+    (split_cycle_times).  Returns (this rank's strip of u, of the Jacobi
+    u, a picklable record)."""
+    import time as _time
+
+    from multigrid_dolfinx_tpu_torch.ops import cuda as kcuda
+
+    cfg, jcfg = (mg.models.poisson2d(
+        finest_level=FINEST_LEVEL_2D, coarsest_level=0, coarsest_elements=8,
+        dtype="float32", cycle=cycle_spec(mg, RTOL_2D, sm))
+        for sm in ("rbgs", "jacobi"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kcuda.reset_launch_counts()
+    t0 = _time.perf_counter()
+    hier, fn = mg.build_halo_solver(cfg)
+    torch.cuda.synchronize()
+    t1 = _time.perf_counter()
+    res = fn(hier)
+    torch.cuda.synchronize()
+    t2 = _time.perf_counter()
+    _, jfn = mg.build_halo_solver(jcfg, hierarchy=hier)
+    jres = jfn(hier)
+    torch.cuda.synchronize()
+    counts = {k: n for k, n in kcuda.launch_counts().items() if n}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    _, cfn = mg.build_halo_cycler(cfg, 10, hierarchy=hier)
+    split = split_cycle_times(torch, dist, cfn, hier, res.u)
+    lm = hier.plan.lms[-1]
+    rb = hier.z_base(hier.num_levels - 1)
+    mid = lm // 2
+    u_mid = (float(res.u[mid - rb, mid])
+             if rb <= mid < rb + res.u.shape[0] else None)
+    return res.u, jres.u, {
+        "build_s": t1 - t0, "solve_s": t2 - t1, "solve": dist_record(res),
+        "jacobi": dist_record(jres), "u_mid": u_mid, "counts": counts,
+        "peak_gb": peak_gb, **split, "shard_from": hier.plan.shard_from,
+        "rows": hier.plan.mz(hier.num_levels - 1)}
+
+
+def phase_dist2d(torch, np, mg, card, main_2d, out_dir):
+    """Phases 27 and 28 in one spawn of DIST_RANKS ranks on the card over
+    gloo (the library is built: phase 2), beside the single-device
+    Jacobi solve of (D2) in this process."""
+    import shutil
+
+    from multigrid_dolfinx_tpu_torch.ops import cuda as kcuda
+
+    # the single-device Jacobi solve of (D2), for phase 28
+    torch.cuda.empty_cache()
+    jcfg = mg.models.poisson2d(
+        finest_level=FINEST_LEVEL_2D, coarsest_level=0, coarsest_elements=8,
+        dtype="float32", cycle=cycle_spec(mg, RTOL_2D, "jacobi"))
+    j1 = mg.solve(mg.build_lean_hierarchy(jcfg), jcfg.cycle)
+    j1_u, j1_count = j1.u.cpu(), j1.num_cycles
+    del j1
+    torch.cuda.empty_cache()
+
+    strips = out_dir / "halo2d_strips"
+    strips.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    try:
+        ranks = mg.run_ranks(dist2d_rank, DIST_RANKS, "gloo", "cuda",
+                             args=(str(strips),), timeout=DIST_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        u_p, ju_p = (torch.cat([torch.load(strips / f"{k}_rank{r}.pt")
+                                for r in range(DIST_RANKS)])
+                     for k in ("u", "ju"))
+    finally:
+        shutil.rmtree(strips, ignore_errors=True)
+
+    # phase 27
+    small = ranks[0]["small"]
+    if not all(same_run(np, ranks[1]["small"][dev][kind], small[dev][kind])
+               for dev in ("cuda", "cpu") for kind in ("rbgs", "jacobi")):
+        raise AssertionError("ranks 0 and 1 disagree on the 2049^2 run")
+    if not same_run(np, ranks[1]["small"]["reference"], small["reference"]):
+        raise AssertionError("ranks 0 and 1 disagree on the reference run")
+    for kind in ("rbgs", "jacobi"):
+        g, c = small["cuda"][kind], small["cpu"][kind]
+        hg, hc = np.array(g["hist"]), np.array(c["hist"])
+        print(f"phase 27 2049^2 f32 P=2 {kind}: card {g['count']}, cpu "
+              f"{c['count']} (converged {g['converged']}/{c['converged']}); "
+              f"res_hist card {hg.tolist()} cpu {hc.tolist()}; "
+              f"max|u_card-u_cpu| {small['du'][kind]!r}")
+        if not (g["count"] == c["count"] and g["converged"]
+                and c["converged"]
+                and np.all(np.abs(hg - hc) <= 1e-5 * np.abs(hc))):
+            raise AssertionError(f"2049^2 distributed {kind}: card and CPU "
+                                 "differ")
+        if small["du"][kind] != 0.0:
+            raise AssertionError(f"2049^2 distributed {kind}: u on the card "
+                                 "is not the CPU's")
+    ref = small["reference"]
+    print(f"phase 27 reference run (65^2 f64, V(50,50) Jacobi, injection) "
+          f"over 2 ranks on the card: {ref['count']} cycles (converged "
+          f"{ref['converged']}), final residual {ref['hist'][-1]!r}")
+    if ref["count"] != 63 or not ref["converged"]:
+        raise AssertionError(f"the distributed reference run took "
+                             f"{ref['count']} cycles, not 63")
+
+    # phase 28
+    runs = [r["main"] for r in ranks]
+    m = runs[0]
+    for other in runs[1:]:
+        for key in ("solve", "jacobi"):
+            if not same_run(np, other[key], m[key]):
+                raise AssertionError(f"ranks disagree on the (D2) {key} run")
+    lm = TIMED_LM_2D
+    u_p, ju_p = u_p[:lm], ju_p[:lm]
+    u_mid = next(r["u_mid"] for r in runs if r["u_mid"] is not None)
+    du = float((u_p - KEPT["u_2d"]).abs().max())
+    dju = float((ju_p - j1_u).abs().max())
+    counts = {k: sum(r["counts"].get(k, 0) for r in runs)
+              for k in set().union(*(r["counts"] for r in runs))}
+    print(f"phase 28 8193^2 f32 over {DIST_RANKS} ranks (gloo, one card, "
+          f"shard_from {m['shard_from']}, {m['rows']} finest rows a rank): "
+          f"build {max(r['build_s'] for r in runs):.3f} s, solve "
+          f"{max(r['solve_s'] for r in runs):.3f} s, {m['solve']['count']} "
+          f"cycles after FMG (single-device {main_2d['cycles']}), res_hist "
+          f"{m['solve']['hist']}, u(1/2,1/2)={u_mid!r}, max|u_P-u_1| {du!r}; "
+          f"Jacobi V(2,2) to {RTOL_2D} {m['jacobi']['count']} cycles "
+          f"(single-device {j1_count}), max|u_P-u_1| {dju!r}; spawn + run "
+          f"{wall:.1f} s")
+    print("phase 28 per rank: " + "; ".join(
+        f"rank {i}: build {r['build_s']:.3f} s, peak {r['peak_gb']:.2f} GB, "
+        f"launches { {k: r['counts'].get(k, 0) for k in KERNELS_DIST2D} }"
+        for i, r in enumerate(runs)))
+    print("phase 28 V-cycle: " + "; ".join(
+        f"rank {i}: {r['ms_per_vcycle']:.4f} ms (instrumented "
+        f"{r['instrumented_ms']:.4f}: kernels {r['kernel_ms']:.4f}, halo and "
+        f"collectives {r['comm_ms']:.4f} in {r['comm_calls']} calls)"
+        for i, r in enumerate(runs)) + f" on [{card}]")
+    print("phase 28 one exchange alone on the finest strip (ms): " + "; ".join(
+        f"rank {i}: " + ", ".join(f"{k} {t:.4f}"
+                                  for k, t in r["exchange_ms"].items())
+        for i, r in enumerate(runs)))
+    if not m["solve"]["converged"] or m["solve"]["count"] != main_2d["cycles"]:
+        raise AssertionError("the distributed 8193^2 solve did not take the "
+                             "single-device count")
+    if du != 0.0:
+        raise AssertionError(f"max|u_P - u_1| = {du} (0 expected)")
+    if not m["jacobi"]["converged"] or m["jacobi"]["count"] != j1_count \
+            or dju != 0.0:
+        raise AssertionError("the distributed Jacobi run is not the "
+                             "single-device one")
+    missing = [k for k in KERNELS_DIST2D
+               if not all(r["counts"].get(k, 0) for r in runs)]
+    if missing:
+        raise AssertionError(f"a rank of (D2) did not launch {missing}")
+    return counts, {"small": small, "ranks": runs, "u_mid": u_mid,
+                    "max_abs_du": du, "jacobi_max_abs_du": dju,
+                    "jacobi_single_device": j1_count, "wall_s": wall}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=ROOT / "build" / "chip_smoke",
@@ -2870,6 +3276,11 @@ def main() -> int:
         dist_kernels = phase_dist_kernels(torch, np, mg, records)
         phase = enter("24-25 distributed 3D")
         counts_dist, dist3d = phase_dist(torch, np, mg, card, main, out_dir)
+        phase = enter("26 kernels K30-K34")
+        phase_dist2d_kernels(torch, np, mg, records)
+        phase = enter("27-28 distributed 2D")
+        counts_dist2d, dist2d = phase_dist2d(torch, np, mg, card, main_2d,
+                                             out_dir)
     except Exception:
         print(f"FAILED in phase {phase}:")
         traceback.print_exc(file=sys.stdout)
@@ -2886,6 +3297,7 @@ def main() -> int:
                            counts_p2[k] if k in KERNELS_P2 else
                            counts_var2d[k] if k in KERNELS_PLANES2 else
                            counts_dist[k] if k in KERNELS_DIST else
+                           counts_dist2d[k] if k in KERNELS_DIST2D else
                            counts_2d[k])
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "build_s": build_s, "main": main,
@@ -2894,6 +3306,7 @@ def main() -> int:
          "p2_kernels": p2_kernels, "p2_65": small_p2, "p2": p2,
          "planes2": planes2, "var2d_2049": small_var2d, "var2d": var2d,
          "dist_kernels_1025": dist_kernels, "dist3d": dist3d,
+         "dist2d": dist2d,
          "phase_s": phase_s, "kernels": list(records.values())}, indent=1))
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -34,7 +34,11 @@ Its slices so far:
     P1 path z-decomposed over the ranks of a torch.distributed process
     group, each holding a z-slab of the finer levels, with halo exchange,
     the coarse levels replicated, and the slab kernels K25-K29;
-    parallel.run_ranks spawns the ranks.
+    parallel.run_ranks spawns the ranks;
+  * the distributed 2D solve (parallel.halo): the constant-coefficient
+    P1 path row-decomposed the same way (the JAX package's ('gx', 1)
+    mesh), each rank holding a strip of rows of the finer levels, with
+    the strip kernels K30-K34.
 On a CUDA device the hot ops run as hand-written Hopper kernels
 (ops/cuda, sources in csrc/); on the CPU they run as the kernels' plain
 PyTorch versions.  This package never imports JAX.
@@ -63,8 +67,9 @@ from .solver.fmg import (SolveResult, error_norm, fmg_solve, residual_norm,
 from .solver.krylov import CGResult, mgcg_solve, solve_mgcg
 from .solver.vcycle import vcycle
 from .utils.convert import hierarchy_from_numpy
-from .parallel import (build_halo_cycler3d, build_halo_mgcg3d,
-                       build_halo_resume3d, build_halo_solver3d,
+from .parallel import (build_halo_cycler, build_halo_cycler3d,
+                       build_halo_mgcg3d, build_halo_resume3d,
+                       build_halo_solver, build_halo_solver3d,
                        gather_solution, run_ranks)
 from . import models, parallel
 
@@ -94,6 +99,8 @@ __all__ = [
     "mgcg_solve",
     "solve_mgcg",
     "hierarchy_from_numpy",
+    "build_halo_solver",
+    "build_halo_cycler",
     "build_halo_solver3d",
     "build_halo_cycler3d",
     "build_halo_mgcg3d",

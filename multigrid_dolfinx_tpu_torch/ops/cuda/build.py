@@ -23,7 +23,8 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
 SOURCES = ("stencil3d.cu", "stencil3d_cheby.cu", "stencil3d_tail.cu",
            "stencil3d_norm.cu", "stencil3d_planes.cu", "stencil3d_p2.cu",
-           "stencil2d.cu", "stencil2d_planes.cu", "stencil3d_dist.cu")
+           "stencil2d.cu", "stencil2d_planes.cu", "stencil3d_dist.cu",
+           "stencil2d_dist.cu")
 HEADERS = ("stencil3d.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -92,6 +93,16 @@ SIGNATURES = {
     "mg_restrict_residual_pt_dist_f64": "pppppppiiiiddp",
     "mg_prolong_linear_dist_f32": "ppppiiiip",
     "mg_prolong_linear_dist_f64": "ppppiiiip",
+    "mg_rb_sweep_dist_2d_f32": "ppppppppiiip",
+    "mg_rb_sweep_dist_2d_f64": "ppppppppiiip",
+    "mg_jacobi_sweep_dist_2d_f32": "pppppiiifffp",
+    "mg_jacobi_sweep_dist_2d_f64": "pppppiiidddp",
+    "mg_residual_dist_2d_f32": "pppppiiip",
+    "mg_residual_dist_2d_f64": "pppppiiip",
+    "mg_restrict_pt_dist_2d_f32": "pppiiiip",
+    "mg_restrict_pt_dist_2d_f64": "pppiiiip",
+    "mg_prolong_add_dist_2d_f32": "ppppiiiip",
+    "mg_prolong_add_dist_2d_f64": "ppppiiiip",
 }
 
 _LIB = None

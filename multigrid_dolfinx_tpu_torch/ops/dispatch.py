@@ -10,9 +10,9 @@ from __future__ import annotations
 
 import torch
 
-from .cuda import (stencil2d, stencil2d_planes, stencil3d, stencil3d_cheby,
-                   stencil3d_dist, stencil3d_norm, stencil3d_p2,
-                   stencil3d_planes, stencil3d_tail)
+from .cuda import (stencil2d, stencil2d_dist, stencil2d_planes, stencil3d,
+                   stencil3d_cheby, stencil3d_dist, stencil3d_norm,
+                   stencil3d_p2, stencil3d_planes, stencil3d_tail)
 from .cuda.stencil3d_planes import planes3_colors  # noqa: F401  (re-export)
 from .operators import StencilOperator
 
@@ -255,3 +255,37 @@ def prolong_linear_dist(c, chi, lmf, z_base, v=None):
     if _on_cuda(c):
         return stencil3d_dist.prolong_linear_dist(c, chi, lmf, z_base, v)
     return stencil3d_dist.prolong_linear_dist_ref(c, chi, lmf, z_base, v)
+
+
+def rb_sweep_dist_2d(v, f, vlo, vhi, flo, fhi, lm, row_base):
+    if _on_cuda(v):
+        return stencil2d_dist.rb_sweep_dist_2d(v, f, vlo, vhi, flo, fhi, lm,
+                                               row_base)
+    return stencil2d_dist.rb_sweep_dist_2d_ref(v, f, vlo, vhi, flo, fhi, lm,
+                                               row_base)
+
+
+def jacobi_sweep_dist_2d(v, df, vlo, vhi, lm, w, row_base):
+    if _on_cuda(v):
+        return stencil2d_dist.jacobi_sweep_dist_2d(v, df, vlo, vhi, lm, w,
+                                                   row_base)
+    return stencil2d_dist.jacobi_sweep_dist_2d_ref(v, df, vlo, vhi, lm, w,
+                                                   row_base)
+
+
+def residual_dist_2d(v, f, vlo, vhi, lm, row_base):
+    if _on_cuda(v):
+        return stencil2d_dist.residual_dist_2d(v, f, vlo, vhi, lm, row_base)
+    return stencil2d_dist.residual_dist_2d_ref(v, f, vlo, vhi, lm, row_base)
+
+
+def restrict_pt_dist_2d(r, rlo, lmf, lmc, row_base):
+    if _on_cuda(r):
+        return stencil2d_dist.restrict_pt_dist_2d(r, rlo, lmf, lmc, row_base)
+    return stencil2d_dist.restrict_pt_dist_2d_ref(r, rlo, lmf, lmc, row_base)
+
+
+def prolong_add_dist_2d(c, chi, lmf, row_base, v=None):
+    if _on_cuda(c):
+        return stencil2d_dist.prolong_add_dist_2d(c, chi, lmf, row_base, v)
+    return stencil2d_dist.prolong_add_dist_2d_ref(c, chi, lmf, row_base, v)

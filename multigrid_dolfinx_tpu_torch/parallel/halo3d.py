@@ -61,19 +61,23 @@ from .comm import SlabComm
 
 def pick_z_shard_plan(config: SolverConfig, ngz: int, min_slab: int = 2,
                       align: bool = True):
-    """(plan, shard_from) for z-slabs over `ngz` ranks (the JAX package's
-    pick_z_shard_plan with ngz for its mesh).  Levels from shard_from up
-    get (z, m, m): z padded to a mesh-divisible size that doubles up the
+    """(plan, shard_from) for slabs along the leading axis over `ngz`
+    ranks (the JAX package's pick_z_shard_plan with ngz for its mesh), in
+    the problem's dimension: z-slabs in 3D, row strips in 2D
+    (parallel.halo.pick_shard_pad_plan).  Levels from shard_from up get
+    (z, m, ...): z padded to a mesh-divisible size that doubles up the
     levels, so transfers stay slab-local; coarser levels stay replicated.
     Level 0 never shards (the coarse solve needs the whole grid).
 
     align=True: z is rounded to the quantum 4 ngz, so every rank's slab
     count is a multiple of 4 and every z_base even; shard_from minimises
     the finest level's padded z, near-ties going to more sharded levels;
-    replicated levels get (m, m, m).  align=False: the first level with
+    replicated levels get (m, m, ...).  align=False: the first level with
     >= min_slab ngz points shards, z rounded to ngz; replicated levels
-    get None.  Storage is unpadded in y and x (no TPU tile rounding)."""
-    grids = build_grid_hierarchy(config.hierarchy, ndim=3)
+    get None.  Storage is unpadded past the leading axis (no TPU tile
+    rounding)."""
+    ndim = config.problem.ndim
+    grids = build_grid_hierarchy(config.hierarchy, ndim=ndim)
     lms = [g.points_per_dim for g in grids]
     L = len(lms) - 1
     valid = [i for i in range(1, len(lms)) if lms[i] >= min_slab * ngz]
@@ -91,13 +95,14 @@ def pick_z_shard_plan(config: SolverConfig, ngz: int, min_slab: int = 2,
         shard_from = min(
             si for si in valid if zfin(si) - zmin <= max(zmin // 16, q))
         z0 = ((lms[shard_from] + q - 1) // q) * q
-        plan = [(m, m, m) if i < shard_from
-                else (z0 * 2 ** (i - shard_from), m, m)
+        plan = [(m,) * ndim if i < shard_from
+                else (z0 * 2 ** (i - shard_from),) + (m,) * (ndim - 1)
                 for i, m in enumerate(lms)]
         return plan, shard_from
     shard_from = valid[0]
     z0 = ((lms[shard_from] + ngz - 1) // ngz) * ngz
-    plan = [None if i < shard_from else (z0 * 2 ** (i - shard_from), m, m)
+    plan = [None if i < shard_from
+            else (z0 * 2 ** (i - shard_from),) + (m,) * (ndim - 1)
             for i, m in enumerate(lms)]
     return plan, shard_from
 
@@ -146,9 +151,10 @@ class HaloHierarchy:
     """A rank's levels: `local` is the port's lean Hierarchy (coarse
     factor, the finest level's class-table mass and error quadrature) in
     which b and g of every level from plan.shard_from up are the rank's
-    (mz, lm, lm) slab (padding rows 0); each level's operator is the
-    const-7 of the whole level.  The single-device cycle runs the whole
-    levels below shard_from from `local` as it stands."""
+    (mz, lm, lm) slab in 3D, its (mz, lm) row strip in 2D (padding rows
+    0); each level's operator is the const-7 (const-5) of the whole
+    level.  The single-device cycle runs the whole levels below
+    shard_from from `local` as it stands."""
 
     plan: ZPlan
     rank: int
@@ -177,8 +183,8 @@ def check_halo_config(config: SolverConfig) -> None:
     p = config.problem
     if p.ndim != 3:
         raise NotImplementedError(
-            "the 2D distributed path (parallel/halo.py) is ROADMAP.md "
-            "queue 1, item 18, with the queue 2 item 14 kernels")
+            "the distributed 2D row-strip solve is parallel.halo."
+            "build_halo_solver (and build_halo_cycler)")
     if p.degree != 1:
         raise NotImplementedError(
             "distributed P2 (parallel/halo3d_p2.py) is ROADMAP.md queue 1, "
@@ -199,6 +205,14 @@ def build_halo_hierarchy(config: SolverConfig, comm: SlabComm,
     equals the single-device build's rows bitwise and the whole level is
     freed before the next is built."""
     check_halo_config(config)
+    return slab_hierarchy(config, comm, device)
+
+
+def slab_hierarchy(config: SolverConfig, comm: SlabComm,
+                   device) -> HaloHierarchy:
+    """The lean build with each sharded level's b and g cut to the rank's
+    slab along the leading axis (z-slabs in 3D, row strips in 2D); the
+    caller has checked the configuration."""
     plan = ZPlan.of(config, comm.size)
 
     def cut(li, a):

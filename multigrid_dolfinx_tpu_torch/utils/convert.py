@@ -37,7 +37,8 @@ Chebyshev window, hence the same solve.
 box, or one padded in z as the JAX package's build_lean_hierarchy(...,
 pad_points=plan) leaves it) into a rank's z-slab under the distributed
 plan (parallel.halo3d.ZPlan), as the port's distributed build lays it
-out: rows past the level's last plane are zero.
+out: rows past the level's last plane are zero.  `halo_rows_from_numpy`
+does the same for a 2D level and a rank's row strip (parallel.halo).
 """
 from __future__ import annotations
 
@@ -120,19 +121,37 @@ def hierarchy_from_numpy(arrays: dict, config: SolverConfig,
                      err_quad=eq)
 
 
-def halo_slab_from_numpy(a: np.ndarray, plan, li: int, rank: int) -> np.ndarray:
-    """Rank `rank`'s (mz, lm, lm) z-slab of level li's global array `a`
-    under `plan` (a parallel.halo3d.ZPlan); a replicated level (li <
-    plan.shard_from) gives the whole (lm, lm, lm) box.  y and x are
-    cropped to lm, rows past lm - 1 are zero."""
+def _leading_cut(a: np.ndarray, plan, li: int, rank: int,
+                 ndim: int) -> np.ndarray:
     lm = plan.lms[li]
-    a = np.asarray(a)[:lm, :lm, :lm]
+    a = np.asarray(a)
+    if a.ndim != ndim:
+        raise ValueError(f"expected a {ndim}D level array, got {a.shape}")
+    a = a[(slice(0, lm),) * ndim]
     if li < plan.shard_from:
         return a.copy()
     mz = plan.mz(li)
-    out = np.zeros((mz, lm, lm), dtype=a.dtype)
+    out = np.zeros((mz,) + (lm,) * (ndim - 1), dtype=a.dtype)
     lo = rank * mz
     hi = min(lo + mz, lm)
     if hi > lo:
         out[:hi - lo] = a[lo:hi]
     return out
+
+
+def halo_slab_from_numpy(a: np.ndarray, plan, li: int, rank: int) -> np.ndarray:
+    """Rank `rank`'s (mz, lm, lm) z-slab of level li's global array `a`
+    under `plan` (a parallel.halo3d.ZPlan); a replicated level (li <
+    plan.shard_from) gives the whole (lm, lm, lm) box.  y and x are
+    cropped to lm, rows past lm - 1 are zero."""
+    return _leading_cut(a, plan, li, rank, 3)
+
+
+def halo_rows_from_numpy(a: np.ndarray, plan, li: int, rank: int) -> np.ndarray:
+    """Rank `rank`'s (m, lm) row strip of 2D level li's global array `a`
+    (the logical box, or one padded as the JAX package's
+    build_lean_hierarchy(..., pad_points=plan) leaves it) under `plan`
+    (the parallel.halo3d.ZPlan of a 2D configuration); a replicated level
+    gives the whole (lm, lm) box.  Columns are cropped to lm, rows past
+    lm - 1 are zero."""
+    return _leading_cut(a, plan, li, rank, 2)

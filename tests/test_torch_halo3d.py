@@ -374,7 +374,8 @@ def test_refused_options_name_their_item():
     """Each refused option raises before any process group is needed and
     names the ROADMAP item that brings it: W and F cycles (item 8), full
     weighting and P1 prolongation (item 5), variable kappa
-    (halo3d_var), P2 (halo3d_p2) and 2D (queue 2 item 14)."""
+    (halo3d_var), P2 (halo3d_p2); 2D points to parallel.halo's
+    build_halo_solver."""
     cyc = ranks.config("rbgs").cycle
     refused = [(ranks.config("rbgs", **kw), item) for kw, item in (
         (dict(cycle="W"), "item 8"), (dict(cycle="F"), "item 8"),
@@ -385,7 +386,8 @@ def test_refused_options_name_their_item():
                                           finest_level=2, cycle=cyc),
          "halo3d_var"),
         (T.models.poisson3d_p2(finest_level=1, cycle=cyc), "halo3d_p2"),
-        (T.models.poisson2d(finest_level=2, cycle=cyc), "item 14"),
+        (T.models.poisson2d(finest_level=2, cycle=cyc),
+         "parallel.halo.build_halo_solver"),
     ]
     builders = (T.build_halo_solver3d, T.build_halo_mgcg3d,
                 T.build_halo_resume3d)

@@ -277,8 +277,8 @@ def test_port_never_imports_jax():
     solve in f64 and in f32, through the fused tail, a 2D assembled solve,
     MG-CG with 3D Jacobi, a Chebyshev solve, a variable-kappa Galerkin
     solve, a P2 solve and MG-CG, a 2D variable-kappa solve and MG-CG, and
-    a one-rank distributed solve over gloo) has no jax in sys.modules.  A subprocess: this test file imports
-    jax."""
+    one-rank distributed 3D and 2D solves over gloo) has no jax in
+    sys.modules.  A subprocess: this test file imports jax."""
     code = (
         "import sys, torch\n"
         "import multigrid_dolfinx_tpu_torch as T\n"
@@ -335,6 +335,15 @@ def test_port_never_imports_jax():
         "rd = fn(hd)\n"
         "assert rd.converged and rd.num_cycles == r.num_cycles\n"
         "assert torch.equal(halo3d.gather_solution(hd, rd.u), r.u)\n"
+        "from multigrid_dolfinx_tpu_torch.parallel import halo\n"
+        "from multigrid_dolfinx_tpu_torch.ops.cuda import stencil2d_dist\n"
+        "c2d = T.models.poisson2d(finest_level=2, coarsest_level=0,"
+        " coarsest_elements=4, cycle=cyc)\n"
+        "r2d = T.solve(T.build_lean_hierarchy(c2d, device='cpu'), cyc)\n"
+        "h2d, fn2d = halo.build_halo_solver(c2d, device='cpu')\n"
+        "rs = fn2d(h2d)\n"
+        "assert rs.converged and rs.num_cycles == r2d.num_cycles\n"
+        "assert torch.equal(T.gather_solution(h2d, rs.u), r2d.u)\n"
         "dist.destroy_process_group()\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('multigrid_dolfinx_tpu.') "
