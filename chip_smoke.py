@@ -152,16 +152,30 @@ Phases (each prints one line; any failure exits nonzero with no result):
      seconds and peak memory per rank, 10 V-cycles timed and split into
      kernel and halo / collective time, one exchange timed alone; each
      rank's strip comes back through a file and must equal phase 9's u
-     (and the single-device Jacobi u) exactly, in the same cycle count.
-Each main path (5, 7, 9, each run of 12, 16, 19, 22, 25 and 28) sets the launch counts
-to 0 just before it runs and reads them just after.  Each kernel's record
+     (and the single-device Jacobi u) exactly, in the same cycle count;
+ 29. the red-black half sweep (K1's kernel, one colour) and the fusion
+     kernels K35-K37 (two sweeps; a sweep + residual + P^T; the
+     correction + a sweep) against their plain versions and against the
+     unfused CUDA chains they replace (two half sweeps = K1, K1 twice, K1
+     then K2, K3 then K1), bitwise, in f32 and f64 at lm in KERNEL_LMS;
+     kernel, plain and unfused-chain times at 513^3 f32;
+ 30. (a) phase 5's configuration with each CycleSpec.fusion set of
+     FUSION_SETS: phase 5's cycle count, u bitwise phase 5's, exactly the
+     fused kernels each set must run launched, and ms a V-cycle of each
+     set beside the unfused cycle, in turns; (b) 64^3 f32 with every
+     fusion on the card: res_hist and u bitwise the plain path's on the
+     CPU; (c) W(2,2) and F(2,2) at 512^3 f32 with every fusion: converged,
+     u(1/2,1/2,1/2) within 1e-2 of 2.5, cycles and ms a cycle.
+Each main path (5, 7, 9, each run of 12, 16, 19, 22, 25, 28 and 30) sets the
+launch counts to 0 just before it runs and reads them just after.  Each kernel's record
 carries its time, its plain version's, the time of one PyTorch call that
 computes the same function where there is one (library_ms, else null;
 never called by the port) and its bound: the larger of the bytes it must
 move over 3.35 TB/s and its f32 operations over 67 TFLOP/s (H100 SXM).
 Before them a line gives each phase's wall seconds.  The second-to-last
-line is the kernels' JSON record (K1-K34, each with the launches of the
-main path that runs it), the last line {"ok": true,
+line is the kernels' JSON record (K1-K37 and the half sweep, each with the
+launches of the main path that runs it; phase 30's summed for the half
+sweep and K35-K37), the last line {"ok": true,
 "device": {...}}.  nvcc's report and the full record go to --out (default
 build/chip_smoke/, under the checkout).  Imports nothing of JAX.
 """
@@ -228,6 +242,12 @@ TPU_KERNELS = {
         "multigrid_dolfinx_tpu/ops/pallas/stencil2d_dist.py:335",
     "prolong_add_dist_2d":
         "multigrid_dolfinx_tpu/ops/pallas/stencil2d_dist.py:406",
+    "rb_half_sweep": "multigrid_dolfinx_tpu/ops/pallas/stencil3d.py:430",
+    "rb_sweep2": "multigrid_dolfinx_tpu/ops/pallas/stencil3d.py:682",
+    "rb_residual_restrict":
+        "multigrid_dolfinx_tpu/ops/pallas/stencil3d_cycle.py:253",
+    "prolong_correct_rb":
+        "multigrid_dolfinx_tpu/ops/pallas/stencil3d_cycle.py:481",
 }
 KERNELS_3D = ("rb_sweep", "restrict_residual_pt", "prolong_linear_add",
               "prolong_linear", "residual_tet_quad")
@@ -264,6 +284,11 @@ KERNELS_DIST2D = ("rb_sweep_dist_2d", "jacobi_sweep_dist_2d",
                   "residual_dist_2d", "restrict_pt_dist_2d",
                   "prolong_add_dist_2d")
 DIST2D_LMS = (17, 65, 1025, 8193)
+KERNELS_CYCLE = ("rb_half_sweep", "rb_sweep2", "rb_residual_restrict",
+                 "prolong_correct_rb")
+# the CycleSpec.fusion sets phase 30 runs
+FUSION_SETS = (("rb2",), ("rb_restrict", "prolong_rb"),
+               ("rb2", "rb_restrict", "prolong_rb"))
 # the 64^3 distributed run, card vs CPU: rbgs to 1e-7 (phase 4's rtol) and
 # MG-CG to 1e-6 (1e-7 is below the f32 floor for MG-CG at 64^3)
 RTOL_DIST_SMALL = {"solve": 1e-7, "mgcg": 1e-6}
@@ -307,6 +332,9 @@ SOURCES = {
        for k in KERNELS_DIST},
     **{k: "multigrid_dolfinx_tpu_torch/csrc/stencil2d_dist.cu"
        for k in KERNELS_DIST2D},
+    "rb_half_sweep": "multigrid_dolfinx_tpu_torch/csrc/stencil3d.cu",
+    **{k: "multigrid_dolfinx_tpu_torch/csrc/stencil3d_cycle.cu"
+       for k in KERNELS_CYCLE[1:]},
 }
 # H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s and f32 FLOP/s
 # outside the tensor cores.
@@ -317,7 +345,9 @@ PEAK_F32_S = 67e12
 # adds in 3D and 3 in 2D, the const-7 residual 9, the [1 2 1] restriction
 # 40 per 3D coarse point and 13 per 2D one, the per-tet norm 54 per cell;
 # the planes kernels at K = 15: a multiply and an add per offset, plus 1
-# (residual), 6 (Jacobi, with the division) or 4 (GS).
+# (residual), 6 (Jacobi, with the division) or 4 (GS); the half sweep
+# updates half the points, the fusions add up the sweeps, residual,
+# restriction and prolongation they run.
 OPS = {"rb_sweep": 8, "restrict_residual_pt": 9, "restrict_residual_pt_c": 40,
        "planes3_residual": 31, "planes3_jacobi_sweep": 34,
        "planes3_gs_sweep": 34, "restrict_pt": 0, "restrict_pt_c": 40,
@@ -330,7 +360,9 @@ OPS = {"rb_sweep": 8, "restrict_residual_pt": 9, "restrict_residual_pt_c": 40,
        "prolong_linear_dist": 4, "rb_sweep_dist_2d": 5,
        "jacobi_sweep_dist_2d": 8, "residual_dist_2d": 6,
        "restrict_pt_dist_2d": 0, "restrict_pt_dist_2d_c": 13,
-       "prolong_add_dist_2d": 3}
+       "prolong_add_dist_2d": 3, "rb_half_sweep": 4, "rb_sweep2": 16,
+       "rb_residual_restrict": 17, "rb_residual_restrict_c": 40,
+       "prolong_correct_rb": 12}
 # f32 arrays of fine points each kernel reads or writes once (fine, coarse)
 ARRAYS = {"rb_sweep": (3, 0), "restrict_residual_pt": (2, 1),
           "prolong_linear": (1, 1), "prolong_linear_add": (2, 1),
@@ -346,7 +378,9 @@ ARRAYS = {"rb_sweep": (3, 0), "restrict_residual_pt": (2, 1),
           "restrict_residual_pt_dist": (2, 1), "prolong_linear_dist": (2, 1),
           "rb_sweep_dist_2d": (3, 0), "jacobi_sweep_dist_2d": (3, 0),
           "residual_dist_2d": (3, 0), "restrict_pt_dist_2d": (1, 1),
-          "prolong_add_dist_2d": (2, 1)}
+          "prolong_add_dist_2d": (2, 1), "rb_half_sweep": (3, 0),
+          "rb_sweep2": (3, 0), "rb_residual_restrict": (3, 1),
+          "prolong_correct_rb": (3, 1)}
 RTOL_64 = {"C": 1e-7, "G1": 1e-6}     # above the f32 floor at 64^3
 # K1-K3 and K5-K9 must agree to 1e-6 of the reference's magnitude (bitwise is
 # expected: same association order, kernels built with --fmad=false); K4
@@ -3197,6 +3231,249 @@ def phase_dist2d(torch, np, mg, card, main_2d, out_dir):
                     "jacobi_single_device": j1_count, "wall_s": wall}
 
 
+def cycle_kernel_cases(s3, sc, v, f, c, lm, lmc, wc, woff):
+    """(name, kernel outputs, plain outputs, unfused CUDA chain outputs)
+    of the half sweep and K35-K37 on one input set."""
+    k1 = s3.rb_sweep(v, f, lm, wc, woff)
+    halves = tuple(s3.rb_half_sweep(v, f, lm, wc, woff, k) for k in (0, 1))
+    return [
+        ("rb_half_sweep",
+         halves + (s3.rb_half_sweep(halves[0], f, lm, wc, woff, 1),),
+         tuple(s3.rb_half_sweep_ref(v, f, lm, wc, woff, k) for k in (0, 1))
+         + (s3.rb_sweep_ref(v, f, lm, wc, woff),),
+         (None, None, k1)),
+        ("rb_sweep2", (sc.rb_sweep2(v, f, lm, wc, woff),),
+         (sc.rb_sweep2_ref(v, f, lm, wc, woff),),
+         (s3.rb_sweep(k1, f, lm, wc, woff),)),
+        ("rb_residual_restrict",
+         sc.rb_residual_restrict(v, f, lm, lmc, wc, woff),
+         sc.rb_residual_restrict_ref(v, f, lm, lmc, wc, woff),
+         (k1, s3.restrict_residual_pt(k1, f, lm, lmc, wc, woff))),
+        ("prolong_correct_rb", (sc.prolong_correct_rb(c, v, f, lm, wc, woff),),
+         (sc.prolong_correct_rb_ref(c, v, f, lm, wc, woff),),
+         (s3.rb_sweep(s3.prolong_linear(c, lm, v), f, lm, wc, woff),)),
+    ]
+
+
+def phase_cycle_kernels(torch, np, mg, records):
+    """The half sweep and K35-K37 against their plain versions and against
+    the unfused CUDA chains they replace (two half sweeps = K1; K1 twice;
+    K1 then K2; K3 then K1), bitwise, in f32 and f64 at lm in KERNEL_LMS;
+    then kernel, plain and unfused-chain times at 513^3 f32 (CUDA events,
+    the least of 2 x 10)."""
+    from multigrid_dolfinx_tpu_torch.ops import cuda as kcuda
+    from multigrid_dolfinx_tpu_torch.ops.cuda import stencil3d as s3
+    from multigrid_dolfinx_tpu_torch.ops.cuda import stencil3d_cycle as sc
+
+    rng = np.random.default_rng(SEED + 29)
+    dev = torch.device("cuda")
+    err = {k: 0.0 for k in KERNELS_CYCLE}
+    kcuda.reset_launch_counts()
+    for dtype in (torch.float32, torch.float64):
+        for lm in KERNEL_LMS:
+            lmc = (lm + 1) // 2
+            wc, woff = level_weights(mg, lm)
+            v, f, c = (torch.from_numpy(rng.standard_normal((n,) * 3)).to(
+                dev, dtype) for n in (lm, lm, lmc))
+            cases = cycle_kernel_cases(s3, sc, v, f, c, lm, lmc, wc, woff)
+            torch.cuda.synchronize()
+            parts, where = [], f"lm={lm} {str(dtype)[6:]}"
+            for name, outs, refs, chain in cases:
+                for out, ref in zip(outs, refs):
+                    check_close(name, out, ref, 0.0, err, parts, where)
+                for out, ref in zip(outs, chain):
+                    if ref is not None and not torch.equal(out, ref):
+                        raise AssertionError(f"{name} at {where} is not its "
+                                             "unfused CUDA chain bitwise")
+            print(f"phase 29 {where}: max|kernel-plain| " + " ".join(parts)
+                  + "; each equal to its unfused CUDA chain")
+            del v, f, c, cases
+    counts = kcuda.launch_counts()
+    missing = [k for k in KERNELS_CYCLE if counts.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"launch counters did not move: {missing}")
+    torch.cuda.empty_cache()
+
+    lm, lmc = TIMED_LM, (TIMED_LM + 1) // 2
+    wc, woff = level_weights(mg, lm)
+    v, f, c = (torch.from_numpy(rng.standard_normal((n,) * 3).astype(
+        np.float32)).to(dev) for n in (lm, lm, lmc))
+    runs = {
+        "rb_half_sweep": (
+            lambda: s3.rb_half_sweep(v, f, lm, wc, woff, 0),
+            lambda: s3.rb_half_sweep_ref(v, f, lm, wc, woff, 0), None),
+        "rb_sweep2": (
+            lambda: sc.rb_sweep2(v, f, lm, wc, woff),
+            lambda: sc.rb_sweep2_ref(v, f, lm, wc, woff),
+            lambda: s3.rb_sweep(s3.rb_sweep(v, f, lm, wc, woff), f, lm, wc,
+                                woff)),
+        "rb_residual_restrict": (
+            lambda: sc.rb_residual_restrict(v, f, lm, lmc, wc, woff),
+            lambda: sc.rb_residual_restrict_ref(v, f, lm, lmc, wc, woff),
+            lambda: s3.restrict_residual_pt(s3.rb_sweep(v, f, lm, wc, woff),
+                                            f, lm, lmc, wc, woff)),
+        "prolong_correct_rb": (
+            lambda: sc.prolong_correct_rb(c, v, f, lm, wc, woff),
+            lambda: sc.prolong_correct_rb_ref(c, v, f, lm, wc, woff),
+            lambda: s3.rb_sweep(s3.prolong_linear(c, lm, v), f, lm, wc,
+                                woff)),
+    }
+    chain_ms = {}
+    for name, (kern, plain, chain) in runs.items():
+        p1 = time_ms(torch, plain, reps=3, warmup=1)
+        k1, k2 = time_ms(torch, kern), time_ms(torch, kern)
+        p2 = time_ms(torch, plain, reps=3, warmup=1)
+        ch = (min(time_ms(torch, chain), time_ms(torch, chain))
+              if chain else None)
+        bound_ms, bound_by = bound(name, lm ** 3, lmc ** 3)
+        records[name] = {
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": TPU_KERNELS[name], "launches": 0,
+            "max_abs_err": err[name], "ms": min(k1, k2),
+            "plain_ms": min(p1, p2), "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
+        }
+        chain_ms[name] = ch
+        extra = "" if ch is None else f", unfused CUDA chain {ch:.4f} ms"
+        print(f"phase 29 time at lm={lm} f32 {name}: kernel {k1:.4f}/"
+              f"{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms{extra}, bound "
+              f"{bound_ms:.4f} ms ({bound_by})")
+    del v, f, c
+    torch.cuda.empty_cache()
+    return {"unfused_chain_ms": chain_ms,
+            "max_abs_err": {k: err[k] for k in KERNELS_CYCLE}}
+
+
+def fused_launches_expected(cyc):
+    """The fused kernels a V/W/F(nu1, nu2) solve with cyc.fusion must
+    launch on the 512^3 hierarchy: K36 and K37 where named; K35 where
+    named and a smoothing phase keeps a pair of sweeps after them."""
+    fu = cyc.fusion
+    left = max(cyc.nu1 - ("rb_restrict" in fu), cyc.nu2 - ("prolong_rb" in fu))
+    return {"rb_sweep2": "rb2" in fu and left >= 2,
+            "rb_residual_restrict": "rb_restrict" in fu,
+            "prolong_correct_rb": "prolong_rb" in fu}
+
+
+def fused_solve(torch, mg, hier, cyc, label):
+    """One solve on the card with the launch counts set to 0 just before
+    and read just after; raises unless exactly the expected fused
+    kernels ran."""
+    from multigrid_dolfinx_tpu_torch.ops import cuda as kcuda
+
+    torch.cuda.synchronize()
+    kcuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = mg.solve(hier, cyc)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = kcuda.launch_counts()
+    for name, want in fused_launches_expected(cyc).items():
+        if bool(counts.get(name, 0)) != want:
+            raise AssertionError(f"{label}: {name} launched "
+                                 f"{counts.get(name, 0)} times")
+    return res, counts, secs
+
+
+def phase_fusion(torch, np, mg, card, main):
+    """(a) phase 5's configuration with each fusion set: phase 5's cycle
+    count and u bitwise; V-cycle times beside the unfused one, in turns;
+    (b) 64^3 f32, every fusion, the card's res_hist and u bitwise the
+    plain path's on the CPU; (c) W(2,2) and F(2,2) at 512^3 f32 with
+    every fusion: converged, u(1/2,1/2,1/2) within 1e-2 of 2.5, cycles
+    and ms a cycle.  Returns the summed launch counts of (a) and (c)."""
+    total = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+
+    cyc = cycle_spec(mg, 1e-8)
+    cfg = mg.models.poisson3d(finest_level=6, coarsest_level=0,
+                              coarsest_elements=8, dtype="float32", cycle=cyc)
+    hier = mg.build_lean_hierarchy(cfg, device=torch.device("cuda"))
+    lm = hier.finest.n + 1
+    mid = lm // 2
+    out = {"a": {}, "c": {}}
+    specs = {fu: dataclasses.replace(cyc, fusion=fu) for fu in FUSION_SETS}
+    for fu, spec in specs.items():
+        res, counts, secs = fused_solve(torch, mg, hier, spec, f"(a) {fu}")
+        add(counts)
+        same = torch.equal(res.u.cpu(), KEPT["u_main"])
+        print(f"phase 30 (a) 512^3 f32 fusion {fu}: {res.num_cycles} cycles "
+              f"after FMG (phase 5: {main['cycles']}), u bitwise phase 5's: "
+              f"{same}, solve {secs:.3f} s, launches "
+              f"{ {k: counts.get(k, 0) for k in ('rb_sweep', 'rb_half_sweep') + KERNELS_CYCLE[1:]} }")
+        if not (res.converged and res.num_cycles == main["cycles"] and same):
+            raise AssertionError(f"fusion {fu}: not phase 5's solve")
+        out["a"][" ".join(fu)] = {"cycles": res.num_cycles, "counts": counts,
+                                  "solve_s": secs}
+        u_last = res.u
+    # ms a V-cycle: unfused, each set, each set again, unfused
+    L = hier.num_levels - 1
+    times = {}
+    for fu in ((),) + FUSION_SETS + FUSION_SETS + ((),):
+        spec = dataclasses.replace(cyc, fusion=fu)
+        holder = [u_last.clone()]
+
+        def one_cycle():
+            holder[0] = mg.vcycle(hier, spec, L, holder[0], hier.finest.b)
+
+        ms = time_ms(torch, one_cycle, reps=10, warmup=1)
+        key = " ".join(fu) or "unfused"
+        times[key] = min(times.get(key, ms), ms)
+    print("phase 30 (a) ms/V-cycle at 512^3 f32 (least of two runs of 10, "
+          f"in turns; phase 5 {main['ms_per_vcycle']:.4f}): " + ", ".join(
+              f"{k} {t:.4f}" for k, t in times.items()) + f" on [{card}]")
+    out["a_ms_per_vcycle"] = times
+
+    # (b) 64^3, card against the plain path on the CPU
+    small = dataclasses.replace(cycle_spec(mg, 1e-7), fusion=FUSION_SETS[-1])
+    scfg = mg.models.poisson3d(finest_level=3, coarsest_level=0,
+                               coarsest_elements=8, dtype="float32",
+                               cycle=small)
+    g = mg.solve(mg.build_lean_hierarchy(scfg, device="cuda"), small)
+    c = mg.solve(mg.build_lean_hierarchy(scfg, device="cpu"),
+                 dataclasses.replace(small, fusion=()))
+    hg = g.res_hist[:g.num_cycles].cpu()
+    same = (g.num_cycles == c.num_cycles and torch.equal(hg, c.res_hist[
+        :c.num_cycles]) and torch.equal(g.u.cpu(), c.u))
+    print(f"phase 30 (b) 64^3 f32 every fusion on the card vs the plain path "
+          f"on the CPU: {g.num_cycles} / {c.num_cycles} cycles, res_hist "
+          f"{hg.double().tolist()}, res_hist and u bitwise: {same}")
+    if not (same and g.converged):
+        raise AssertionError("64^3 fused card run differs from the CPU's")
+
+    # (c) W and F cycles with every fusion
+    for shape in ("W", "F"):
+        spec = dataclasses.replace(cyc, cycle=shape, fusion=FUSION_SETS[-1])
+        res, counts, secs = fused_solve(torch, mg, hier, spec,
+                                        f"(c) {shape}")
+        add(counts)
+        u_mid = float(res.u[mid, mid, mid])
+        holder = [res.u.clone()]
+
+        def one_cycle():
+            holder[0] = mg.vcycle(hier, spec, L, holder[0], hier.finest.b)
+
+        ms = min(time_ms(torch, one_cycle, reps=5, warmup=1),
+                 time_ms(torch, one_cycle, reps=5, warmup=1))
+        print(f"phase 30 (c) 512^3 f32 {shape}(2,2) every fusion: "
+              f"{res.num_cycles} cycles after FMG (converged "
+              f"{res.converged}), res_hist "
+              f"{res.res_hist[:res.num_cycles].double().tolist()}, "
+              f"u(1/2,1/2,1/2)={u_mid!r}, solve {secs:.3f} s, {ms:.4f} ms a "
+              f"cycle (least of two runs of 5) on [{card}]")
+        if not (res.converged and abs(u_mid - 2.5) < 1e-2):
+            raise AssertionError(f"{shape}-cycle 512^3 solve failed")
+        out["c"][shape] = {"cycles": res.num_cycles, "u_mid": u_mid,
+                           "ms_per_cycle": ms, "solve_s": secs,
+                           "counts": counts}
+    del hier, u_last
+    torch.cuda.empty_cache()
+    return total, out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=ROOT / "build" / "chip_smoke",
@@ -3281,6 +3558,10 @@ def main() -> int:
         phase = enter("27-28 distributed 2D")
         counts_dist2d, dist2d = phase_dist2d(torch, np, mg, card, main_2d,
                                              out_dir)
+        phase = enter("29 kernels K35-K37 and the half sweep")
+        cycle_kernels = phase_cycle_kernels(torch, np, mg, records)
+        phase = enter("30 fused and W/F cycles at 512^3")
+        counts_fusion, fusion = phase_fusion(torch, np, mg, card, main)
     except Exception:
         print(f"FAILED in phase {phase}:")
         traceback.print_exc(file=sys.stdout)
@@ -3298,6 +3579,7 @@ def main() -> int:
                            counts_var2d[k] if k in KERNELS_PLANES2 else
                            counts_dist[k] if k in KERNELS_DIST else
                            counts_dist2d[k] if k in KERNELS_DIST2D else
+                           counts_fusion[k] if k in KERNELS_CYCLE else
                            counts_2d[k])
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "build_s": build_s, "main": main,
@@ -3306,8 +3588,8 @@ def main() -> int:
          "p2_kernels": p2_kernels, "p2_65": small_p2, "p2": p2,
          "planes2": planes2, "var2d_2049": small_var2d, "var2d": var2d,
          "dist_kernels_1025": dist_kernels, "dist3d": dist3d,
-         "dist2d": dist2d,
-         "phase_s": phase_s, "kernels": list(records.values())}, indent=1))
+         "dist2d": dist2d, "cycle_kernels": cycle_kernels,
+         "fusion": fusion, "phase_s": phase_s, "kernels": list(records.values())}, indent=1))
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -38,7 +38,13 @@ Its slices so far:
   * the distributed 2D solve (parallel.halo): the constant-coefficient
     P1 path row-decomposed the same way (the JAX package's ('gx', 1)
     mesh), each rank holding a strip of rows of the finer levels, with
-    the strip kernels K30-K34.
+    the strip kernels K30-K34;
+  * the single-device cycle's remaining options: W and F cycles, the
+    reference's full-weighting restriction and the P1 prolongation, and
+    CycleSpec.fusion, the JAX package's fused cycle steps (two red-black
+    sweeps in one kernel, K35; the last pre-smoothing sweep with the
+    residual and P^T, K36; the correction with the first post-smoothing
+    sweep, K37), each bitwise the unfused cycle.
 On a CUDA device the hot ops run as hand-written Hopper kernels
 (ops/cuda, sources in csrc/); on the CPU they run as the kernels' plain
 PyTorch versions.  This package never imports JAX.

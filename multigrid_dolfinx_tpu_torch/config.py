@@ -4,14 +4,16 @@ Mirrors `multigrid_dolfinx_tpu.config` field for field, minus what only the
 TPU build needed — the sharding spec, the `use_pallas` switch (the port
 picks its CUDA kernels by the device a tensor lives on, never by a flag)
 and the jnp kappa presets — and minus `check_every`, which no code reads.
-Values the port does not run yet are still accepted here, so configs stay
-interchangeable with the JAX package; the solver raises
-NotImplementedError on them (see solver.vcycle.check_slice).
+It adds one field, `CycleSpec.fusion`, which takes the place of the JAX
+package's MG_RB2 / MG_CYCLE_FUSE / MG_FUSE_A / MG_FUSE_B environment
+switches.  Values the port does not run on a path yet are still accepted
+here, so configs stay interchangeable with the JAX package; that path
+raises NotImplementedError on them.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Sequence
+from typing import Callable, Optional, Sequence, Tuple
 
 
 def _default_exact_3d(x, y, z):
@@ -93,10 +95,22 @@ class HierarchySpec:
             raise ValueError(f"bad coarse_operator {self.coarse_operator}")
 
 
+#: Members of CycleSpec.fusion and the JAX package's switches they stand
+#: for: "rb2" MG_RB2=1 (sweep pairs as one kernel, K35), "rb_restrict"
+#: MG_CYCLE_FUSE=1 with MG_FUSE_A (the last pre-smoothing sweep, the
+#: residual and P^T as one kernel, K36), "prolong_rb" MG_CYCLE_FUSE=1 with
+#: MG_FUSE_B (the correction and the first post-smoothing sweep as one
+#: kernel, K37).
+FUSIONS = ("rb2", "rb_restrict", "prolong_rb")
+
+
 @dataclasses.dataclass(frozen=True)
 class CycleSpec:
     """Multigrid-cycle parameters (defaults are the reference's: V(50,50)
-    weighted Jacobi, injection, tol 1e-11 on the FEM-L2 residual norm)."""
+    weighted Jacobi, injection, tol 1e-11 on the FEM-L2 residual norm).
+    `fusion` names the fused kernels a 3D const-7 red-black level runs
+    (FUSIONS); each gives the unfused result bitwise, and () (the JAX
+    package's default) runs none."""
 
     mu0: int = 2
     nu1: int = 50
@@ -112,8 +126,15 @@ class CycleSpec:
     rtol: float = 0.0
     max_cycles: int = 100
     track_error: bool = True
+    fusion: Tuple[str, ...] = ()
 
     def __post_init__(self):
+        if not isinstance(self.fusion, tuple):
+            raise TypeError(f"fusion must be a tuple, got {self.fusion!r}")
+        bad = [m for m in self.fusion if m not in FUSIONS]
+        if bad or len(set(self.fusion)) != len(self.fusion):
+            raise ValueError(f"bad fusion {self.fusion!r}: members are "
+                             f"distinct names from {FUSIONS}")
         if self.smoother not in ("jacobi", "rbgs", "chebyshev"):
             raise ValueError(f"bad smoother {self.smoother}")
         if self.cycle not in ("V", "W", "F"):

@@ -1,5 +1,6 @@
 // Const-7-point multigrid kernels for Hopper (sm_90a): K1-K3, K10 and
-// K11 of the port, and K18, the P^T restriction of a given residual.
+// K11 of the port, K18, the P^T restriction of a given residual, and the
+// red-black half sweep that K1 launches twice.
 //
 // Storage is the logical lm^3 node box, C-order (z, y, x), contiguous and
 // unpadded.  Interior means 1 <= index <= lm-2 on every axis.  Every sum
@@ -25,12 +26,14 @@ using mg3d::restrict_point;
 
 constexpr int kThreads = 256;
 
-// K1: one colour of the red-black Gauss-Seidel sweep, one thread per
-// point.  Points of `color` ((x+y+z) % 2 == color) take the candidate
-// (f + (-woff) S) * (1/wc) inside and f on the boundary; the others copy
-// src.  The red launch reads v and writes out; the black launch runs in
-// place on out (src == out): a black point reads only red neighbours and
-// writes only itself, so the in-place update has no race.
+// K1 is two launches of the half sweep (stencil3d.py rb_half_sweep): one
+// colour of the red-black Gauss-Seidel sweep, one thread per point.
+// Points of `color` ((x+y+z) % 2 == color) take the candidate (f +
+// (-woff) S) * (1/wc) inside and f on the boundary (mg3d::rb_candidate);
+// the others copy src.  K1's red launch reads v and writes out; its black
+// launch runs in place on out (src == out): a point of one colour reads
+// only the other colour and writes only itself, so the in-place update
+// has no race.
 template <typename T>
 __global__ void rb_color_kernel(const T* src, const T* __restrict__ f, T* out,
                                 int lm, T inv_wc, T neg_woff, int color) {
@@ -44,12 +47,9 @@ __global__ void rb_color_kernel(const T* src, const T* __restrict__ f, T* out,
         if (src != out) out[p] = src[p];
         return;
     }
-    if (!(inside(z, lm) && inside(y, lm) && inside(x, lm))) {
-        out[p] = f[p];
-        return;
-    }
-    const T s = nbr_sum(src, p, z, y, x, lm);
-    out[p] = (f[p] + neg_woff * s) * inv_wc;
+    const long long sz = (long long)lm * lm, sy = lm;
+    out[p] = mg3d::rb_candidate<T>(mg3d::Flat<T, long long>{src, p, sz, sy},
+                                   f, p, z, y, x, lm, inv_wc, neg_woff);
 }
 
 // K2: fused residual + variational P^T restriction, one thread per coarse
@@ -152,16 +152,22 @@ unsigned int blocks_for(long long n) {
 }
 
 template <typename T>
+int rb_half_sweep(const T* src, const T* f, T* out, int lm, T inv_wc,
+                  T neg_woff, int color, cudaStream_t stream) {
+    const unsigned int nb = blocks_for((long long)lm * lm * lm);
+    rb_color_kernel<T><<<nb, kThreads, 0, stream>>>(src, f, out, lm, inv_wc,
+                                                    neg_woff, color);
+    return (int)cudaGetLastError();
+}
+
+// K1: red from v into out, then black in place on out.
+template <typename T>
 int rb_sweep(const T* v, const T* f, T* out, int lm, T inv_wc, T neg_woff,
              cudaStream_t stream) {
-    const unsigned int nb = blocks_for((long long)lm * lm * lm);
-    rb_color_kernel<T><<<nb, kThreads, 0, stream>>>(v, f, out, lm, inv_wc,
-                                                    neg_woff, 0);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    rb_color_kernel<T><<<nb, kThreads, 0, stream>>>(out, f, out, lm, inv_wc,
-                                                    neg_woff, 1);
-    return (int)cudaGetLastError();
+    const int err = rb_half_sweep<T>(v, f, out, lm, inv_wc, neg_woff, 0,
+                                     stream);
+    if (err != 0) return err;
+    return rb_half_sweep<T>(out, f, out, lm, inv_wc, neg_woff, 1, stream);
 }
 
 template <typename T>
@@ -244,6 +250,21 @@ int mg_rb_sweep_f64(const double* v, const double* f, double* out, int lm,
                     double inv_wc, double neg_woff, void* stream) {
     return rb_sweep<double>(v, f, out, lm, inv_wc, neg_woff,
                             (cudaStream_t)stream);
+}
+
+// One colour; out may be src (in place).
+int mg_rb_half_sweep_f32(const float* src, const float* f, float* out,
+                         int lm, float inv_wc, float neg_woff, int color,
+                         void* stream) {
+    return rb_half_sweep<float>(src, f, out, lm, inv_wc, neg_woff, color,
+                                (cudaStream_t)stream);
+}
+
+int mg_rb_half_sweep_f64(const double* src, const double* f, double* out,
+                         int lm, double inv_wc, double neg_woff, int color,
+                         void* stream) {
+    return rb_half_sweep<double>(src, f, out, lm, inv_wc, neg_woff, color,
+                                 (cudaStream_t)stream);
 }
 
 int mg_restrict_residual_pt_f32(const float* v, const float* f, float* out,

@@ -1,5 +1,6 @@
 // Device helpers shared by the kernels of stencil3d.cu,
-// stencil3d_cheby.cu, stencil3d_tail.cu and stencil3d_planes.cu.
+// stencil3d_cheby.cu, stencil3d_tail.cu, stencil3d_planes.cu,
+// stencil3d_dist.cu and stencil3d_cycle.cu.
 //
 // Storage is the logical lm^3 node box, C-order (z, y, x), contiguous and
 // unpadded.  Interior means 1 <= index <= lm-2 on every axis.
@@ -27,34 +28,80 @@ __device__ __forceinline__ bool interior(int z, int y, int x, int lm) {
     return inside(z, lm) && inside(y, lm) && inside(x, lm);
 }
 
+// A field around one point, read at neighbour offsets: at(dz, dy, dx) is
+// v[p + dz sz + dy sy + dx].  With v a contiguous lm^3 array in global
+// memory (sz = lm^2, sy = lm) it reads the box; with v a window in shared
+// memory (its own strides) it reads the window, so the cycle kernels of
+// stencil3d_cycle.cu run each point through the same arithmetic as K1-K3.
+// I is the index type: long long for K1-K3, int for K10-K12 and the
+// shared-memory windows.
+template <typename T, typename I>
+struct Flat {
+    const T* v;
+    I p, sz, sy;
+    __device__ __forceinline__ T operator()(int dz, int dy, int dx) const {
+        return v[p + dz * sz + dy * sy + dx];
+    }
+};
+
 // 6-neighbour sum of the interior-masked field around interior point
 // (z, y, x), in the order (z-1)+(z+1)+(y-1)+(y+1)+(x-1)+(x+1)
 // (stencil3d.py _nbr_sum).  Neighbours outside the interior read as 0.
-// I is the index type: long long for K1-K3, int for K10-K12.
+template <typename T, typename At>
+__device__ __forceinline__ T nbr_sum_at(const At& at, int z, int y, int x,
+                                        int lm) {
+    T zm = inside(z - 1, lm) ? at(-1, 0, 0) : T(0);
+    T zp = inside(z + 1, lm) ? at(1, 0, 0) : T(0);
+    T ym = inside(y - 1, lm) ? at(0, -1, 0) : T(0);
+    T yp = inside(y + 1, lm) ? at(0, 1, 0) : T(0);
+    T xm = inside(x - 1, lm) ? at(0, 0, -1) : T(0);
+    T xp = inside(x + 1, lm) ? at(0, 0, 1) : T(0);
+    return ((((zm + zp) + ym) + yp) + xm) + xp;
+}
+
+// nbr_sum_at on a contiguous lm^3 array around point index p.
 template <typename T, typename I>
 __device__ __forceinline__ T nbr_sum(const T* v, I p, int z, int y, int x,
                                      int lm) {
     const I sz = (I)lm * lm, sy = lm;
-    T zm = inside(z - 1, lm) ? v[p - sz] : T(0);
-    T zp = inside(z + 1, lm) ? v[p + sz] : T(0);
-    T ym = inside(y - 1, lm) ? v[p - sy] : T(0);
-    T yp = inside(y + 1, lm) ? v[p + sy] : T(0);
-    T xm = inside(x - 1, lm) ? v[p - 1] : T(0);
-    T xp = inside(x + 1, lm) ? v[p + 1] : T(0);
-    return ((((zm + zp) + ym) + yp) + xm) + xp;
+    return nbr_sum_at<T>(Flat<T, I>{v, p, sz, sy}, z, y, x, lm);
+}
+
+// The red-black candidate of K1 at point (z, y, x), global index p of f:
+// (f + (-woff) S) (1/wc) inside, f on the boundary (stencil3d.py
+// _gs_candidate).  inv_wc and neg_woff arrive rounded to T.
+template <typename T, typename At, typename I>
+__device__ __forceinline__ T rb_candidate(const At& v,
+                                          const T* __restrict__ f, I p,
+                                          int z, int y, int x, int lm,
+                                          T inv_wc, T neg_woff) {
+    if (!interior(z, y, x, lm)) return f[p];
+    return (f[p] + neg_woff * nbr_sum_at<T>(v, z, y, x, lm)) * inv_wc;
 }
 
 // Residual r = f - (wc v + woff S) at a fine point, 0 off the interior
-// (the 'pt' correction-equation masking).
+// (the 'pt' correction-equation masking); v read through `v`, f at its
+// global index p.
+template <typename T, typename At, typename I>
+__device__ __forceinline__ T masked_residual_at(const At& v,
+                                                const T* __restrict__ f,
+                                                I p, int z, int y, int x,
+                                                int lm, T wc, T woff) {
+    if (!interior(z, y, x, lm)) return T(0);
+    const T av = wc * v(0, 0, 0) + woff * nbr_sum_at<T>(v, z, y, x, lm);
+    return f[p] - av;
+}
+
+// masked_residual_at on contiguous lm^3 arrays.
 template <typename T>
 __device__ __forceinline__ T masked_residual(const T* __restrict__ v,
                                              const T* __restrict__ f, int z,
                                              int y, int x, int lm, T wc,
                                              T woff) {
-    if (!interior(z, y, x, lm)) return T(0);
     const long long p = ((long long)z * lm + y) * lm + x;
-    const T av = wc * v[p] + woff * nbr_sum(v, p, z, y, x, lm);
-    return f[p] - av;
+    const long long sz = (long long)lm * lm, sy = lm;
+    return masked_residual_at<T>(Flat<T, long long>{v, p, sz, sy}, f, p, z,
+                                 y, x, lm, wc, woff);
 }
 
 // Variational P^T restriction at coarse point (zc, yc, xc) of the fine
@@ -115,31 +162,59 @@ __device__ __forceinline__ T restrict_point(const T* __restrict__ v,
     return restrict_combine<T>(sample, zc, yc, xc, lmc);
 }
 
-// Trilinear prolongation of the lmc^3 coarse array c at fine point
-// (zf, yf, xf): interpolated in x, then y, then z, as stencil3d.py
-// _plane_prolong / _prolong_kernel do.
+// Trilinear prolongation at fine point (zf, yf, xf) of the coarse values
+// c(kz, jy, ix): interpolated in x, then y, then z, as stencil3d.py
+// _plane_prolong / _prolong_kernel do.  `c` reads a coarse array in
+// global memory (Box) or a coarse footprint in shared memory.
+template <typename T, typename C>
+__device__ __forceinline__ T interp_x_at(const C& c, int kz, int jy, int xf) {
+    if ((xf & 1) == 0) return c(kz, jy, xf >> 1);
+    return T(0.5) * (c(kz, jy, xf >> 1) + c(kz, jy, (xf >> 1) + 1));
+}
+
+template <typename T, typename C>
+__device__ __forceinline__ T interp_xy_at(const C& c, int kz, int yf,
+                                          int xf) {
+    if ((yf & 1) == 0) return interp_x_at<T>(c, kz, yf >> 1, xf);
+    return T(0.5) * (interp_x_at<T>(c, kz, yf >> 1, xf) +
+                     interp_x_at<T>(c, kz, (yf >> 1) + 1, xf));
+}
+
+template <typename T, typename C>
+__device__ __forceinline__ T prolong_point_at(const C& c, int zf, int yf,
+                                              int xf) {
+    if ((zf & 1) == 0) return interp_xy_at<T>(c, zf >> 1, yf, xf);
+    return T(0.5) * (interp_xy_at<T>(c, zf >> 1, yf, xf) +
+                     interp_xy_at<T>(c, (zf >> 1) + 1, yf, xf));
+}
+
+// A contiguous lm^3 array in global memory, read at (z, y, x).
+template <typename T>
+struct Box {
+    const T* a;
+    int lm;
+    __device__ __forceinline__ T operator()(int z, int y, int x) const {
+        return a[((long long)z * lm + y) * lm + x];
+    }
+};
+
+// The prolongation helpers on the lmc^3 coarse array c in global memory.
 template <typename T>
 __device__ __forceinline__ T interp_x(const T* __restrict__ c, int kz, int jy,
                                       int xf, int lmc) {
-    const T* row = c + ((long long)kz * lmc + jy) * lmc;
-    if ((xf & 1) == 0) return row[xf >> 1];
-    return T(0.5) * (row[xf >> 1] + row[(xf >> 1) + 1]);
+    return interp_x_at<T>(Box<T>{c, lmc}, kz, jy, xf);
 }
 
 template <typename T>
 __device__ __forceinline__ T interp_xy(const T* __restrict__ c, int kz, int yf,
                                        int xf, int lmc) {
-    if ((yf & 1) == 0) return interp_x(c, kz, yf >> 1, xf, lmc);
-    return T(0.5) * (interp_x(c, kz, yf >> 1, xf, lmc) +
-                     interp_x(c, kz, (yf >> 1) + 1, xf, lmc));
+    return interp_xy_at<T>(Box<T>{c, lmc}, kz, yf, xf);
 }
 
 template <typename T>
 __device__ __forceinline__ T prolong_point(const T* __restrict__ c, int zf,
                                            int yf, int xf, int lmc) {
-    if ((zf & 1) == 0) return interp_xy(c, zf >> 1, yf, xf, lmc);
-    return T(0.5) * (interp_xy(c, zf >> 1, yf, xf, lmc) +
-                     interp_xy(c, (zf >> 1) + 1, yf, xf, lmc));
+    return prolong_point_at<T>(Box<T>{c, lmc}, zf, yf, xf);
 }
 
 // Grid of the 32 x 8 kernels over an lm^3 box.

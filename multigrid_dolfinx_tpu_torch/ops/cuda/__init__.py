@@ -4,14 +4,15 @@ Importing this package never touches nvcc or ctypes: the library is
 built and loaded at the first CUDA launch (ops.cuda.build).
 """
 from . import (stencil2d, stencil2d_dist, stencil2d_planes, stencil3d,
-               stencil3d_cheby, stencil3d_dist, stencil3d_norm, stencil3d_p2,
-               stencil3d_planes, stencil3d_tail)
+               stencil3d_cheby, stencil3d_cycle, stencil3d_dist, stencil3d_norm,
+               stencil3d_p2, stencil3d_planes, stencil3d_tail)
 
 _COUNTERS = (stencil3d.LAUNCHES, stencil3d_cheby.LAUNCHES,
              stencil3d_tail.LAUNCHES, stencil3d_norm.LAUNCHES,
              stencil3d_planes.LAUNCHES, stencil3d_p2.LAUNCHES,
              stencil2d.LAUNCHES, stencil2d_planes.LAUNCHES,
-             stencil3d_dist.LAUNCHES, stencil2d_dist.LAUNCHES)
+             stencil3d_dist.LAUNCHES, stencil2d_dist.LAUNCHES,
+             stencil3d_cycle.LAUNCHES)
 
 
 def launch_counts() -> dict:

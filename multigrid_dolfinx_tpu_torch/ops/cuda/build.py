@@ -24,7 +24,7 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
 SOURCES = ("stencil3d.cu", "stencil3d_cheby.cu", "stencil3d_tail.cu",
            "stencil3d_norm.cu", "stencil3d_planes.cu", "stencil3d_p2.cu",
            "stencil2d.cu", "stencil2d_planes.cu", "stencil3d_dist.cu",
-           "stencil2d_dist.cu")
+           "stencil2d_dist.cu", "stencil3d_cycle.cu")
 HEADERS = ("stencil3d.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -36,6 +36,14 @@ NVCC_FLAGS = (
 SIGNATURES = {
     "mg_rb_sweep_f32": "pppiffp",
     "mg_rb_sweep_f64": "pppiddp",
+    "mg_rb_half_sweep_f32": "pppiffip",
+    "mg_rb_half_sweep_f64": "pppiddip",
+    "mg_rb_sweep2_f32": "pppiffp",
+    "mg_rb_sweep2_f64": "pppiddp",
+    "mg_rb_residual_restrict_f32": "ppppiiffffp",
+    "mg_rb_residual_restrict_f64": "ppppiiddddp",
+    "mg_prolong_correct_rb_f32": "ppppiiffp",
+    "mg_prolong_correct_rb_f64": "ppppiiddp",
     "mg_restrict_residual_pt_f32": "pppiiffp",
     "mg_restrict_residual_pt_f64": "pppiiddp",
     "mg_restrict_pt_f32": "ppiip",

@@ -1,5 +1,5 @@
-"""Const-7-point multigrid kernels K1-K3, K10, K11 and the P^T restriction
-K18: CUDA wrappers and plain versions.
+"""Const-7-point multigrid kernels K1-K3, K10, K11, the P^T restriction
+K18 and the red-black half sweep: CUDA wrappers and plain versions.
 
 Each `name(...)` launches the hand-written Hopper kernel of
 `csrc/stencil3d.cu` on a CUDA tensor (and raises on anything else); each
@@ -15,6 +15,9 @@ K1 rb_sweep replaces multigrid_dolfinx_tpu/ops/pallas/stencil3d.py
   place.  The TPU kernel's single pass over both colours needs a 2-slab
   halo of recomputed red values; fusing the colours that way in shared
   memory is later work.
+rb_half_sweep replaces stencil3d.py rb_half_sweep: one colour of K1, the
+  kernel K1 launches twice (rb_color_kernel), out of place.  Bound:
+  memory, v and f read and out written once in f32.
 K2 restrict_residual_pt replaces stencil3d.py restrict_residual_pt.
   Bound: memory, 8 bytes per fine point read (v, f) and 4 per coarse
   point written; the residual is never stored.  Design: one thread per
@@ -52,9 +55,10 @@ import torch.nn.functional as F
 from . import build
 from ..operators import box_interior_mask
 
-#: Calls of each wrapper that launched its kernel(s) (rb_sweep is two
-#: colour launches per call).  Reset with ops.cuda.reset_launch_counts().
-LAUNCHES = {"rb_sweep": 0, "restrict_residual_pt": 0,
+#: Calls of each wrapper that launched its kernel(s).  rb_sweep is two
+#: launches of the half-sweep kernel per call, so it also adds 2 to
+#: rb_half_sweep.  Reset with ops.cuda.reset_launch_counts().
+LAUNCHES = {"rb_sweep": 0, "rb_half_sweep": 0, "restrict_residual_pt": 0,
             "prolong_linear": 0, "prolong_linear_add": 0,
             "residual": 0, "jacobi_sweep": 0, "restrict_pt": 0}
 
@@ -85,6 +89,12 @@ def stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def check_pair(lmf: int, lmc: int) -> None:
+    """Raise unless the fine box is 2 lmc - 1 points a side."""
+    if lmf != 2 * lmc - 1:
+        raise ValueError(f"lmf={lmf} is not 2*lmc-1 for lmc={lmc}")
+
+
 def check_lm(lm: int) -> None:
     """Raise unless lm^3 fits the 32-bit point index of K10-K12."""
     if not 3 <= lm <= MAX_LM:
@@ -111,6 +121,26 @@ def rb_sweep(v: torch.Tensor, f: torch.Tensor, lm: int, wc: float,
                  1.0 / wc, -woff, stream(v))
     build.check(err, "rb_sweep")
     LAUNCHES["rb_sweep"] += 1
+    LAUNCHES["rb_half_sweep"] += 2
+    return out
+
+
+def rb_half_sweep(v: torch.Tensor, f: torch.Tensor, lm: int, wc: float,
+                  woff: float, color: int) -> torch.Tensor:
+    """One colour of the red-black sweep into a new array: points with
+    (x+y+z) % 2 == color take the candidate, the others copy v."""
+    if color not in (0, 1):
+        raise ValueError(f"color must be 0 (red) or 1 (black), got {color}")
+    shape = (lm,) * 3
+    check_tensor(v, "v", shape)
+    check_tensor(f, "f", shape, v.dtype)
+    out = torch.empty_like(v)
+    fn = getattr(build.library(), f"mg_rb_half_sweep_{suffix(v.dtype)}")
+    with torch.cuda.device(v.device):
+        err = fn(v.data_ptr(), f.data_ptr(), out.data_ptr(), lm, 1.0 / wc,
+                 -woff, color, stream(v))
+    build.check(err, "rb_half_sweep")
+    LAUNCHES["rb_half_sweep"] += 1
     return out
 
 
@@ -128,19 +158,23 @@ def parity_ref(lm: int, device) -> torch.Tensor:
     return (i.view(-1, 1, 1) + i.view(1, -1, 1) + i.view(1, 1, -1)) % 2
 
 
+def rb_half_sweep_ref(v: torch.Tensor, f: torch.Tensor, lm: int, wc: float,
+                      woff: float, color: int) -> torch.Tensor:
+    """Plain version of rb_half_sweep: candidate (f + (-woff) S) (1/wc)
+    inside, f on the boundary, at the points of `color`."""
+    interior = box_interior_mask(v.shape, lm, v.device)
+    vt = torch.where(interior, v, 0.0)
+    cand = torch.where(interior,
+                       (f + (-woff) * nbr_sum_ref(vt)) * (1.0 / wc), f)
+    return torch.where(parity_ref(lm, v.device) == color, cand, v)
+
+
 def rb_sweep_ref(v: torch.Tensor, f: torch.Tensor, lm: int, wc: float,
                  woff: float) -> torch.Tensor:
-    """Plain version of rb_sweep: candidate (f + (-woff) S) (1/wc) inside,
-    f on the boundary; red ((x+y+z) even) then black on the red result."""
-    interior = box_interior_mask(v.shape, lm, v.device)
-    parity = parity_ref(lm, v.device)
-    cur = v
-    for color in (0, 1):
-        vt = torch.where(interior, cur, 0.0)
-        cand = torch.where(interior,
-                           (f + (-woff) * nbr_sum_ref(vt)) * (1.0 / wc), f)
-        cur = torch.where(parity == color, cand, cur)
-    return cur
+    """Plain version of rb_sweep: the red half sweep ((x+y+z) even), then
+    the black one on its result."""
+    red = rb_half_sweep_ref(v, f, lm, wc, woff, 0)
+    return rb_half_sweep_ref(red, f, lm, wc, woff, 1)
 
 
 # ----------------------------------------------------------------------
@@ -154,8 +188,7 @@ def restrict_residual_pt(v: torch.Tensor, f: torch.Tensor, lmf: int,
     shape = (lmf,) * 3
     check_tensor(v, "v", shape)
     check_tensor(f, "f", shape, v.dtype)
-    if lmf != 2 * lmc - 1:
-        raise ValueError(f"lmf={lmf} is not 2*lmc-1 for lmc={lmc}")
+    check_pair(lmf, lmc)
     out = torch.empty((lmc,) * 3, dtype=v.dtype, device=v.device)
     fn = getattr(build.library(), f"mg_restrict_residual_pt_{suffix(v.dtype)}")
     with torch.cuda.device(v.device):
@@ -194,8 +227,7 @@ def restrict_pt(r: torch.Tensor, lmf: int, lmc: int) -> torch.Tensor:
     """mask_c * 0.125 * [1,2,1]^3 (mask_f r) sampled at even fine
     indices."""
     check_tensor(r, "r", (lmf,) * 3)
-    if lmf != 2 * lmc - 1:
-        raise ValueError(f"lmf={lmf} is not 2*lmc-1 for lmc={lmc}")
+    check_pair(lmf, lmc)
     out = torch.empty((lmc,) * 3, dtype=r.dtype, device=r.device)
     fn = getattr(build.library(), f"mg_restrict_pt_{suffix(r.dtype)}")
     with torch.cuda.device(r.device):
@@ -227,8 +259,7 @@ def prolong_linear(c: torch.Tensor, lmf: int,
                    v: Optional[torch.Tensor] = None) -> torch.Tensor:
     """P(c) on the lmf^3 fine box, or v + P(c) when v is given."""
     lmc = c.shape[0]
-    if lmf != 2 * lmc - 1:
-        raise ValueError(f"lmf={lmf} is not 2*lmc-1 for lmc={lmc}")
+    check_pair(lmf, lmc)
     check_tensor(c, "c", (lmc,) * 3)
     if v is not None:
         check_tensor(v, "v", (lmf,) * 3, c.dtype)

@@ -11,8 +11,9 @@ from __future__ import annotations
 import torch
 
 from .cuda import (stencil2d, stencil2d_dist, stencil2d_planes, stencil3d,
-                   stencil3d_cheby, stencil3d_dist, stencil3d_norm,
-                   stencil3d_p2, stencil3d_planes, stencil3d_tail)
+                   stencil3d_cheby, stencil3d_cycle, stencil3d_dist,
+                   stencil3d_norm, stencil3d_p2, stencil3d_planes,
+                   stencil3d_tail)
 from .cuda.stencil3d_planes import planes3_colors  # noqa: F401  (re-export)
 from .operators import StencilOperator
 
@@ -67,6 +68,30 @@ def rb_sweep(v, f, lm, wc, woff):
     if _on_cuda(v):
         return stencil3d.rb_sweep(v, f, lm, wc, woff)
     return stencil3d.rb_sweep_ref(v, f, lm, wc, woff)
+
+
+def rb_half_sweep(v, f, lm, wc, woff, color):
+    if _on_cuda(v):
+        return stencil3d.rb_half_sweep(v, f, lm, wc, woff, color)
+    return stencil3d.rb_half_sweep_ref(v, f, lm, wc, woff, color)
+
+
+def rb_sweep2(v, f, lm, wc, woff):
+    if _on_cuda(v):
+        return stencil3d_cycle.rb_sweep2(v, f, lm, wc, woff)
+    return stencil3d_cycle.rb_sweep2_ref(v, f, lm, wc, woff)
+
+
+def rb_residual_restrict(v, f, lmf, lmc, wc, woff):
+    if _on_cuda(v):
+        return stencil3d_cycle.rb_residual_restrict(v, f, lmf, lmc, wc, woff)
+    return stencil3d_cycle.rb_residual_restrict_ref(v, f, lmf, lmc, wc, woff)
+
+
+def prolong_correct_rb(c, v, f, lmf, wc, woff):
+    if _on_cuda(c):
+        return stencil3d_cycle.prolong_correct_rb(c, v, f, lmf, wc, woff)
+    return stencil3d_cycle.prolong_correct_rb_ref(c, v, f, lmf, wc, woff)
 
 
 def restrict_residual_pt(v, f, lmf, lmc, wc, woff):

@@ -4,7 +4,8 @@ operators; multicolour Gauss-Seidel and weighted Jacobi on 3D and 2D
 stored-planes operators; weighted Jacobi on the 3D P2 parity operator.
 
 Each sweep goes through ops.dispatch (a kernel on CUDA, its plain version
-on the CPU): 3D RB-GS through K1, 3D Jacobi through K11, 3D Chebyshev
+on the CPU): 3D RB-GS through K1 (sweep pairs through K35 under
+CycleSpec.fusion "rb2"), 3D Jacobi through K11, 3D Chebyshev
 through the fused momentum-form step K12; 2D RB-GS through K6, 2D Jacobi
 through K5, 2D Chebyshev in p-form on the residual K7; on planes,
 multicolour GS through K17 and Jacobi through K16 in 3D, K24 and K23
@@ -184,7 +185,12 @@ def smooth_p2(sm: SmootherData, A: StencilOperator, v: torch.Tensor,
 
 
 def smooth(sm: SmootherData, A: StencilOperator, v: torch.Tensor,
-           f: torch.Tensor, nsweeps: int, kind: str) -> torch.Tensor:
+           f: torch.Tensor, nsweeps: int, kind: str,
+           rb2: bool = False) -> torch.Tensor:
+    """nsweeps sweeps of smoother `kind`.  rb2 (CycleSpec.fusion "rb2",
+    the JAX package's MG_RB2=1) runs a 3D const-7 red-black smoothing as
+    nsweeps // 2 double sweeps (K35) and, for odd nsweeps, one K1 sweep;
+    elsewhere it changes nothing."""
     if nsweeps <= 0:
         return v
     if A.parity_tables is not None:
@@ -215,6 +221,9 @@ def smooth(sm: SmootherData, A: StencilOperator, v: torch.Tensor,
             v = dispatch.jacobi_sweep(v, f, lm, wc, woff, sm.omega,
                                       out=bufs[k % 2])
         return v
-    for _ in range(nsweeps):
+    pairs, rest = divmod(nsweeps, 2) if rb2 else (0, nsweeps)
+    for _ in range(pairs):
+        v = dispatch.rb_sweep2(v, f, lm, wc, woff)
+    for _ in range(rest):
         v = dispatch.rb_sweep(v, f, lm, wc, woff)
     return v

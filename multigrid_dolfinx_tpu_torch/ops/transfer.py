@@ -1,13 +1,14 @@
 """Grid transfers as plain torch ops, in 2D and 3D.
 
 `restrict_inject` is the reference's injection (coarse[p] = fine[2p]),
-`restrict_pt` the variational P^T (2^d times the reference's full
-weighting) and `prolong_linear` the multilinear interpolation, each in
-the association order of `multigrid_dolfinx_tpu.ops.transfer`.  The
-V-cycle runs injection from here and the kernels for the rest
-(ops.cuda); the plain two-step forms are what the W/F cycles of
-ROADMAP.md queue 1, item 8 will use.  Full weighting as a cycle option
-and the P1 embedding are queue 1, item 5.
+`restrict_full_weighting` the reference's full weighting (constant 1/4^d,
+missing neighbours zero, PARITY.md section 2a), `restrict_pt` the
+variational P^T (2^d times full weighting), `prolong_linear` the
+multilinear interpolation and `prolong_p1` the exact P1 embedding, each
+in the association order of `multigrid_dolfinx_tpu.ops.transfer`.  The
+JAX package has no Pallas kernel for injection, full weighting or the P1
+embedding, so the cycle runs them from here and the kernels for the rest
+(ops.cuda).
 """
 from __future__ import annotations
 
@@ -66,17 +67,63 @@ def restrict_pt(u_fine: torch.Tensor) -> torch.Tensor:
     return (2.0 ** u_fine.ndim) * restrict_full_weighting(u_fine)
 
 
+def prolong_p1(u_coarse: torch.Tensor, diagonal: str = "right") -> torch.Tensor:
+    """Exact P1 nested-space embedding on the triangulated grid: every fine
+    node lies on a coarse mesh edge and takes the mean of its two
+    endpoints.  2D: the (odd, odd) node on the triangle diagonal; 3D
+    (Kuhn): the face-diagonal classes on the increasing diagonals and the
+    (1,1,1) class on the main diagonal, mirrored in axis 0 for 'left'
+    (the JAX package's transfer.prolong_p1, axis for axis)."""
+    c = u_coarse
+    m = c.shape[0]
+    out = torch.zeros((2 * m - 1,) * c.ndim, dtype=c.dtype, device=c.device)
+    ev, od = slice(None, None, 2), slice(1, None, 2)
+    lo, hi, al = slice(None, -1), slice(1, None), slice(None)
+    if c.ndim == 2:
+        out[ev, ev] = c
+        out[od, ev] = 0.5 * (c[lo, :] + c[hi, :])
+        out[ev, od] = 0.5 * (c[:, lo] + c[:, hi])
+        if diagonal == "right":
+            out[od, od] = 0.5 * (c[lo, lo] + c[hi, hi])
+        else:
+            out[od, od] = 0.5 * (c[hi, lo] + c[lo, hi])
+        return out
+    if c.ndim != 3:
+        raise NotImplementedError("p1 prolongation is 2D and 3D")
+    out[ev, ev, ev] = c
+    out[od, ev, ev] = 0.5 * (c[lo, al, al] + c[hi, al, al])
+    out[ev, od, ev] = 0.5 * (c[al, lo, al] + c[al, hi, al])
+    out[ev, ev, od] = 0.5 * (c[al, al, lo] + c[al, al, hi])
+    yz = 0.5 * (c[al, lo, lo] + c[al, hi, hi])
+    if diagonal == "right":
+        xy = 0.5 * (c[lo, lo, al] + c[hi, hi, al])
+        xz = 0.5 * (c[lo, al, lo] + c[hi, al, hi])
+        ctr = 0.5 * (c[lo, lo, lo] + c[hi, hi, hi])
+    else:
+        xy = 0.5 * (c[hi, lo, al] + c[lo, hi, al])
+        xz = 0.5 * (c[hi, al, lo] + c[lo, al, hi])
+        ctr = 0.5 * (c[hi, lo, lo] + c[lo, hi, hi])
+    out[od, od, ev] = xy
+    out[od, ev, od] = xz
+    out[ev, od, od] = yz
+    out[od, od, od] = ctr
+    return out
+
+
 def restrict(u_fine: torch.Tensor, kind: str) -> torch.Tensor:
     if kind == "injection":
         return restrict_inject(u_fine)
+    if kind == "full_weighting":
+        return restrict_full_weighting(u_fine)
     if kind == "pt":
         return restrict_pt(u_fine)
-    raise NotImplementedError(
-        f"restriction {kind!r} is ROADMAP.md queue 1, item 5")
+    raise ValueError(f"unknown restriction {kind!r}")
 
 
-def prolong(u_coarse: torch.Tensor, kind: str) -> torch.Tensor:
+def prolong(u_coarse: torch.Tensor, kind: str,
+            diagonal: str = "right") -> torch.Tensor:
     if kind == "bilinear":
         return prolong_linear(u_coarse)
-    raise NotImplementedError(
-        f"prolongation {kind!r} is ROADMAP.md queue 1, item 5")
+    if kind == "p1":
+        return prolong_p1(u_coarse, diagonal)
+    raise ValueError(f"unknown prolongation {kind!r}")

@@ -44,11 +44,11 @@ from ..ops.cuda.stencil2d_dist import row_coords, strip_interior
 from ..ops.operators import axis_class
 from ..ops.smoothers import NP_TYPES, cheby_phase, cheby_window
 from ..solver.hierarchy import check_problem, resolve_device
-from ..solver.vcycle import check_slice, tail_or_recurse
+from ..solver.vcycle import tail_or_recurse
 from ..solver.vcycle import vcycle as vcycle_replicated
 from .comm import SlabComm
-from .halo3d import (HaloHierarchy, _HaloOps, cut_slab, pick_z_shard_plan,
-                     slab_hierarchy)
+from .halo3d import (HaloHierarchy, _HaloOps, check_halo_cycle, cut_slab,
+                     pick_z_shard_plan, slab_hierarchy)
 
 
 def pick_shard_pad_plan(config: SolverConfig, ngx: int):
@@ -93,7 +93,7 @@ def check_row_config(config: SolverConfig,
             "the distributed 2D solve takes the 'cholesky' or 'inverse' "
             "coarse solve, as the JAX package's halo path does")
     check_problem(config)
-    check_slice(config.cycle)
+    check_halo_cycle(config.cycle)
 
 
 def build_row_hierarchy(config: SolverConfig, comm: SlabComm,

@@ -40,7 +40,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
-from ..config import SolverConfig
+from ..config import CycleSpec, SolverConfig
 from ..mesh import build_grid_hierarchy
 from ..ops import dispatch
 from ..ops.cuda.stencil3d_dist import slab_coords, slab_interior
@@ -50,7 +50,7 @@ from ..solver.fmg import SolveResult
 from ..solver.hierarchy import (Hierarchy, Level, build_lean_hierarchy,
                                 check_problem)
 from ..solver.krylov import CGResult
-from ..solver.vcycle import check_slice, prolong_level, tail_or_recurse
+from ..solver.vcycle import prolong_level, tail_or_recurse
 from ..solver.vcycle import vcycle as vcycle_replicated
 from .comm import SlabComm
 
@@ -177,6 +177,23 @@ class HaloHierarchy:
         return self.rank * self.plan.mz(li)
 
 
+def check_halo_cycle(spec: CycleSpec) -> None:
+    """Raise for the cycle options the distributed cycles (3D z-slabs and
+    2D row strips) do not run yet, naming the ROADMAP.md item that brings
+    each; the single-device cycle runs them all."""
+    if spec.cycle != "V":
+        raise NotImplementedError(
+            f"distributed {spec.cycle}-cycles are ROADMAP.md queue 1, item 8")
+    if spec.restriction == "full_weighting" or spec.prolongation != "bilinear":
+        raise NotImplementedError(
+            "distributed 'full_weighting' restriction and 'p1' "
+            "prolongation are ROADMAP.md queue 1, item 5")
+    if spec.fusion:
+        raise NotImplementedError(
+            "the distributed cycles have no fused kernels: CycleSpec.fusion "
+            "runs on the single-device cycle")
+
+
 def check_halo_config(config: SolverConfig) -> None:
     """Raise for problems and cycle options outside the distributed 3D
     slice, naming the ROADMAP.md item that brings each."""
@@ -194,7 +211,7 @@ def check_halo_config(config: SolverConfig) -> None:
             "distributed variable kappa (parallel/halo3d_var.py) is "
             "ROADMAP.md queue 1, item 18")
     check_problem(config)
-    check_slice(config.cycle)
+    check_halo_cycle(config.cycle)
 
 
 def build_halo_hierarchy(config: SolverConfig, comm: SlabComm,

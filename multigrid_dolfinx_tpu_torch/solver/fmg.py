@@ -23,7 +23,7 @@ from ..config import CycleSpec
 from ..ops import dispatch
 from ..ops.operators import mass_norm
 from .hierarchy import Hierarchy
-from .vcycle import check_slice, compute_residual, prolong_level, vcycle
+from .vcycle import compute_residual, prolong_level, vcycle
 
 
 class SolveResult(NamedTuple):
@@ -134,7 +134,8 @@ def tolerance_solve(hier: Hierarchy, spec: CycleSpec, v0: torch.Tensor,
 def fmg_ramp(hier: Hierarchy, spec: CycleSpec, mode: str = "fixed",
              collect_debug: bool = False):
     """Nested iteration from the coarsest level up: the coarse solve, then
-    on each finer level the prolonged iterate and mu0 V-cycles.
+    on each finer level the iterate prolonged by spec.prolongation and mu0
+    cycles of spec's shape and fusions.
     mode='tol' leaves the finest level's prolonged iterate uncycled (the
     tolerance loop takes it from there).  Returns (v, debug): debug is the
     finest cycle's internals under collect_debug in fixed mode, else
@@ -143,7 +144,7 @@ def fmg_ramp(hier: Hierarchy, spec: CycleSpec, mode: str = "fixed",
     v = hier.coarse.solve(hier.levels[0].b)
     debug = None
     for li in range(1, nlev):
-        v = prolong_level(v, hier.levels[li])
+        v = prolong_level(v, hier.levels[li], kind=spec.prolongation)
         is_finest = li == nlev - 1
         if is_finest and mode == "tol":
             break
@@ -164,7 +165,6 @@ def fmg_solve(hier: Hierarchy, spec: CycleSpec, mode: str = "tol",
     finest (collect_debug then also returns the finest cycle's internals)."""
     if mode not in ("tol", "fixed"):
         raise ValueError(f"mode must be 'tol' or 'fixed', got {mode!r}")
-    check_slice(spec)
     v, debug = fmg_ramp(hier, spec, mode, collect_debug)
     if hier.num_levels == 1:
         nan = torch.full((spec.max_cycles,), float("nan"), dtype=v.dtype,
@@ -195,7 +195,6 @@ def fmg_solve(hier: Hierarchy, spec: CycleSpec, mode: str = "tol",
 
 def resume_solve(hier: Hierarchy, spec: CycleSpec, v0) -> SolveResult:
     """Continue V-cycling from a previous iterate until tolerance."""
-    check_slice(spec)
     b = hier.finest.b
     v0 = torch.as_tensor(v0, dtype=b.dtype, device=b.device)
     return tolerance_solve(hier, spec, v0, b)

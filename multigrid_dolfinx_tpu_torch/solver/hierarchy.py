@@ -40,7 +40,7 @@ DTYPES = {"float32": torch.float32, "float64": torch.float64}
 class Level:
     """One device-resident grid level: operator A (const or planes),
     smoother data, lifted RHS b and Dirichlet values g (0 at interior
-    nodes)."""
+    nodes), and the mesh diagonal (the 'p1' prolongation reads it)."""
 
     A: StencilOperator
     sm: SmootherData
@@ -48,6 +48,7 @@ class Level:
     g: torch.Tensor
     n: int
     level: int
+    diagonal: str = "right"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -184,7 +185,8 @@ def const_level(offsets, weights, grid, b: torch.Tensor, g: torch.Tensor,
     sm = SmootherData(lmax=2.0 if lmax is None else lmax,
                       omega=config.cycle.omega, dinv=dinv,
                       cheby_degree=config.cycle.cheby_degree)
-    return Level(A=A, sm=sm, b=b, g=g, n=grid.n, level=grid.level)
+    return Level(A=A, sm=sm, b=b, g=g, n=grid.n, level=grid.level,
+                 diagonal=config.problem.diagonal)
 
 
 def _finish(config: SolverConfig, levels, asm0, grids, dtype,
@@ -290,7 +292,8 @@ def planes_level(offsets, planes: torch.Tensor, grid, b: torch.Tensor,
                         planes=planes)
     sm = SmootherData(lmax=2.0, omega=config.cycle.omega,
                       cheby_degree=config.cycle.cheby_degree)
-    return Level(A=A, sm=sm, b=b, g=g, n=grid.n, level=grid.level)
+    return Level(A=A, sm=sm, b=b, g=g, n=grid.n, level=grid.level,
+                 diagonal=config.problem.diagonal)
 
 
 def check_var_cycle(config: SolverConfig) -> None:
@@ -384,7 +387,8 @@ def p2_level(offsets, grid, b: torch.Tensor, g: torch.Tensor,
                         grid_shape=(lm,) * grid.ndim, parity_tables=tables)
     sm = SmootherData(lmax=2.0, omega=config.cycle.omega,
                       cheby_degree=config.cycle.cheby_degree)
-    return Level(A=A, sm=sm, b=b, g=g, n=2 * grid.n, level=grid.level)
+    return Level(A=A, sm=sm, b=b, g=g, n=2 * grid.n, level=grid.level,
+                 diagonal=config.problem.diagonal)
 
 
 def p2_mass_operator(offsets, grid, tables: torch.Tensor) -> StencilOperator:

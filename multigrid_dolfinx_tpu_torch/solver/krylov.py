@@ -20,7 +20,7 @@ import torch
 from ..config import CycleSpec
 from .fmg import check_norm, fmg_ramp
 from .hierarchy import Hierarchy
-from .vcycle import check_slice, compute_residual, vcycle
+from .vcycle import compute_residual, vcycle
 
 
 class CGResult(NamedTuple):
@@ -57,7 +57,6 @@ def mgcg_solve(hier: Hierarchy, spec: CycleSpec,
     apply_operator's -r(p, 0).  After every iteration the check ||b - A x||_M
     (fmg.check_norm: K4 in 3D) stops the loop at rn <= tol or rn <= rtol *
     ||b - A 0||_M (rtol > 0); a non-finite rn stops it as diverged."""
-    check_slice(spec)
     L = hier.num_levels - 1
     lv = hier.finest
     f = lv.b

@@ -252,24 +252,28 @@ def test_operators_match_jax():
 
 
 def test_transfers_match_jax():
-    """Injection, restrict/prolong by kind and the plain 2D P^T and
-    bilinear forms = the JAX package's."""
+    """Injection, full weighting, P^T, bilinear and P1 prolongation on
+    either diagonal, by kind, in 2D and 3D = the JAX package's."""
     rng = np.random.default_rng(5)
-    r, c = rng.standard_normal((17, 17)), rng.standard_normal((9, 9))
-    for kind in ("injection", "pt"):
-        np.testing.assert_allclose(
-            transfer.restrict(torch.from_numpy(r), kind).numpy(),
-            np.asarray(jax.jit(partial(jtransfer.restrict, kind=kind))(
-                jnp.asarray(r))),
-            rtol=1e-14, atol=1e-14)
-    np.testing.assert_allclose(
-        transfer.prolong(torch.from_numpy(c), "bilinear").numpy(),
-        np.asarray(jax.jit(partial(jtransfer.prolong, kind="bilinear"))(
-            jnp.asarray(c))),
-        rtol=1e-14, atol=1e-14)
-    for kind, fn in (("full_weighting", transfer.restrict),
-                     ("p1", transfer.prolong)):
-        with pytest.raises(NotImplementedError, match="item 5"):
+    for shape_f, shape_c in (((17, 17), (9, 9)), ((9, 9, 9), (5, 5, 5))):
+        r, c = rng.standard_normal(shape_f), rng.standard_normal(shape_c)
+        for kind in ("injection", "full_weighting", "pt"):
+            np.testing.assert_allclose(
+                transfer.restrict(torch.from_numpy(r), kind).numpy(),
+                np.asarray(jax.jit(partial(jtransfer.restrict, kind=kind))(
+                    jnp.asarray(r))),
+                rtol=1e-14, atol=1e-14)
+        for kind, diagonal in (("bilinear", "right"), ("p1", "right"),
+                               ("p1", "left")):
+            np.testing.assert_allclose(
+                transfer.prolong(torch.from_numpy(c), kind, diagonal).numpy(),
+                np.asarray(jax.jit(partial(jtransfer.prolong, kind=kind,
+                                           diagonal=diagonal))(
+                    jnp.asarray(c))),
+                rtol=1e-14, atol=1e-14)
+    for kind, fn in (("weighted", transfer.restrict),
+                     ("cubic", transfer.prolong)):
+        with pytest.raises(ValueError, match="unknown"):
             fn(torch.from_numpy(r), kind)
 
 
@@ -424,14 +428,28 @@ def test_non_const5_operator_raises():
             smooth(lv.sm, scaled, lv.b, lv.b, 1, kind)
 
 
-@pytest.mark.parametrize("cycle,match", [
+@pytest.mark.parametrize("cycle,item", [
     (dict(cycle="W"), "item 8"),
-    (dict(restriction="full_weighting"), "item 5"),
+    (dict(restriction="full_weighting", max_cycles=100), "item 5"),
     (dict(prolongation="p1"), "item 5"),
+    (dict(cycle="F"), "item 8"),
 ])
-def test_2d_cycle_options_outside_the_slice_raise(cycle, match):
-    _, _, tcfg, _ = _lean_configs(2)
-    tc = T.CycleSpec(**{**LEAN_CYCLE, **cycle})
-    th = T.build_lean_hierarchy(tcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        T.solve(th, tc)
+def test_2d_cycle_options_outside_the_slice_raise(cycle, item):
+    """The cycle options ROADMAP.md queue 1 `item` brought to the
+    single-device cycle (W and F cycles, the reference's 'full_weighting'
+    with its 1/16 boundary weighting, 'p1' prolongation) on the lean
+    33^2 f64 solve over four levels (4^2 to 32^2 elements, so W and F
+    differ) against the JAX package's plain path: the same cycle count,
+    histories to rtol 1e-9 with the 1e-15 ||b||_M floor."""
+    kw = {**LEAN_CYCLE, **cycle}
+    jc, tc = J.config.CycleSpec(**kw), T.CycleSpec(**kw)
+    shape = dict(finest_level=3, coarsest_level=0, coarsest_elements=4)
+    jr = _jax_solve(J.build_lean_hierarchy(
+        J.models.poisson2d(cycle=jc, **shape)), jc)
+    th = T.build_lean_hierarchy(T.models.poisson2d(cycle=tc, **shape),
+                                device="cpu")
+    assert len(th.levels) == 4 and th.finest.n == 32, item
+    tr = T.solve(th, tc)
+    rn_ref = float(check_norm(th, torch.zeros_like(th.finest.b),
+                              th.finest.b))
+    _assert_histories(tr, jr, 1e-15 * rn_ref, errors=False)

@@ -219,16 +219,28 @@ def test_resume_solve_continues_to_tolerance():
     assert float(again.res_hist[0]) < float(first.res_hist[first.num_cycles - 1])
 
 
-@pytest.mark.parametrize("cycle,match", [
+@pytest.mark.parametrize("cycle,item", [
     (dict(cycle="W"), "item 8"),
     (dict(cycle="F"), "item 8"),
     (dict(prolongation="p1"), "item 5"),
+    (dict(restriction="full_weighting", max_cycles=60), "item 5"),
 ])
-def test_cycle_options_outside_the_slice_raise(cycle, match):
-    _, _, tcfg, tc = _configs(1, **cycle)
-    th = T.build_lean_hierarchy(tcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        T.solve(th, tc)
+def test_cycle_options_outside_the_slice_raise(cycle, item):
+    """The cycle options ROADMAP.md queue 1 `item` brought to the
+    single-device cycle (W and F cycles, 'p1' prolongation, 'full_weighting'
+    restriction) against the JAX package's plain path at 16^3 f64 on four
+    levels (2^3 to 16^3 elements, so W and F differ): the same cycle count,
+    histories to rtol 1e-9 with the 1e-15 ||b||_M floor."""
+    kw = {**CYCLE, **cycle}
+    jc, tc = J.config.CycleSpec(**kw), T.CycleSpec(**kw)
+    shape = dict(finest_level=3, coarsest_level=0, coarsest_elements=2,
+                 dtype="float64")
+    jh = J.build_lean_hierarchy(J.models.poisson3d(cycle=jc, **shape))
+    jr = J.solve(jh, jc)
+    th = T.build_lean_hierarchy(T.models.poisson3d(cycle=tc, **shape),
+                                device="cpu")
+    assert len(th.levels) == 4, item
+    _assert_same_solve(T.solve(th, tc), jr, th)
 
 
 @pytest.mark.parametrize("problem,match", [
@@ -274,7 +286,8 @@ def test_cuda_device_without_a_card_raises():
 
 def test_port_never_imports_jax():
     """A fresh interpreter importing the port (and running a tiny 3D lean
-    solve in f64 and in f32, through the fused tail, a 2D assembled solve,
+    solve in f64 and in f32, through the fused tail, an F-cycle with every
+    CycleSpec.fusion, a W-cycle with 'p1' prolongation, a 2D assembled solve,
     MG-CG with 3D Jacobi, a Chebyshev solve, a variable-kappa Galerkin
     solve, a P2 solve and MG-CG, a 2D variable-kappa solve and MG-CG, and
     one-rank distributed 3D and 2D solves over gloo) has no jax in
@@ -295,6 +308,12 @@ def test_port_never_imports_jax():
         " dtype='float64', cycle=cyc)\n"
         "r = T.solve(T.build_lean_hierarchy(cfg, device='cpu'), cyc)\n"
         "assert r.converged\n"
+        "import dataclasses\n"
+        "for kw in (dict(cycle='F', fusion=('rb2', 'rb_restrict',"
+        " 'prolong_rb')), dict(cycle='W', prolongation='p1')):\n"
+        "    cf = dataclasses.replace(cyc, **kw)\n"
+        "    assert T.solve(T.build_lean_hierarchy(cfg, device='cpu'),"
+        " cf).converged, kw\n"
         "c32 = T.models.poisson3d(finest_level=2, coarsest_elements=4,"
         " dtype='float32', cycle=cyc)\n"
         "assert T.solve(T.build_lean_hierarchy(c32, device='cpu'),"
