@@ -165,17 +165,28 @@ Phases (each prints one line; any failure exits nonzero with no result):
      set beside the unfused cycle, in turns; (b) 64^3 f32 with every
      fusion on the card: res_hist and u bitwise the plain path's on the
      CPU; (c) W(2,2) and F(2,2) at 512^3 f32 with every fusion: converged,
-     u(1/2,1/2,1/2) within 1e-2 of 2.5, cycles and ms a cycle.
-Each main path (5, 7, 9, each run of 12, 16, 19, 22, 25, 28 and 30) sets the
+     u(1/2,1/2,1/2) within 1e-2 of 2.5, cycles and ms a cycle;
+ 31. K38 (residual_mass_quad, the residual and r^T M r for any radius-1
+     class-table mass) against its plain version within TOL_NORM, two
+     calls bitwise equal, in f32 and f64 at lm in KERNEL_LMS on seeded
+     random v and f with the P1 mass tables of both diagonals (there also
+     against K4 within TOL_NORM) and, at lm <= 65, a random symmetric
+     27-offset table; kernel / plain times at 513^3 f32 beside K4's;
+ 32. phase 5's configuration with the mass uncertified (uniform_p1_mass
+     None, the StencilOperator default a carried-across JAX hierarchy may
+     hold), so the check runs on K38: phase 5's cycle count, u bitwise
+     phase 5's, res_hist within TOL_NORM of phase 5's, K38 launched once a
+     check and K4 never; the check timed on both masses.
+Each main path (5, 7, 9, each run of 12, 16, 19, 22, 25, 28, 30 and 32) sets the
 launch counts to 0 just before it runs and reads them just after.  Each kernel's record
 carries its time, its plain version's, the time of one PyTorch call that
 computes the same function where there is one (library_ms, else null;
 never called by the port) and its bound: the larger of the bytes it must
 move over 3.35 TB/s and its f32 operations over 67 TFLOP/s (H100 SXM).
 Before them a line gives each phase's wall seconds.  The second-to-last
-line is the kernels' JSON record (K1-K37 and the half sweep, each with the
+line is the kernels' JSON record (K1-K38 and the half sweep, each with the
 launches of the main path that runs it; phase 30's summed for the half
-sweep and K35-K37), the last line {"ok": true,
+sweep and K35-K37, phase 32's for K38), the last line {"ok": true,
 "device": {...}}.  nvcc's report and the full record go to --out (default
 build/chip_smoke/, under the checkout).  Imports nothing of JAX.
 """
@@ -248,6 +259,8 @@ TPU_KERNELS = {
         "multigrid_dolfinx_tpu/ops/pallas/stencil3d_cycle.py:253",
     "prolong_correct_rb":
         "multigrid_dolfinx_tpu/ops/pallas/stencil3d_cycle.py:481",
+    "residual_mass_quad":
+        "multigrid_dolfinx_tpu/ops/pallas/stencil3d_norm.py:561",
 }
 KERNELS_3D = ("rb_sweep", "restrict_residual_pt", "prolong_linear_add",
               "prolong_linear", "residual_tet_quad")
@@ -286,6 +299,8 @@ KERNELS_DIST2D = ("rb_sweep_dist_2d", "jacobi_sweep_dist_2d",
 DIST2D_LMS = (17, 65, 1025, 8193)
 KERNELS_CYCLE = ("rb_half_sweep", "rb_sweep2", "rb_residual_restrict",
                  "prolong_correct_rb")
+# lm up to which phase 31 also runs a random 27-offset class table
+MASS_GENERIC_LM = 65
 # the CycleSpec.fusion sets phase 30 runs
 FUSION_SETS = (("rb2",), ("rb_restrict", "prolong_rb"),
                ("rb2", "rb_restrict", "prolong_rb"))
@@ -335,6 +350,7 @@ SOURCES = {
     "rb_half_sweep": "multigrid_dolfinx_tpu_torch/csrc/stencil3d.cu",
     **{k: "multigrid_dolfinx_tpu_torch/csrc/stencil3d_cycle.cu"
        for k in KERNELS_CYCLE[1:]},
+    "residual_mass_quad": "multigrid_dolfinx_tpu_torch/csrc/stencil3d_norm.cu",
 }
 # H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s and f32 FLOP/s
 # outside the tensor cores.
@@ -347,7 +363,9 @@ PEAK_F32_S = 67e12
 # the planes kernels at K = 15: a multiply and an add per offset, plus 1
 # (residual), 6 (Jacobi, with the division) or 4 (GS); the half sweep
 # updates half the points, the fusions add up the sweeps, residual,
-# restriction and prolongation they run.
+# restriction and prolongation they run; the class-table form 40 at the
+# P1 mass's 15 offsets (the residual 9, a multiply and an add an offset,
+# the product with r(p)).
 OPS = {"rb_sweep": 8, "restrict_residual_pt": 9, "restrict_residual_pt_c": 40,
        "planes3_residual": 31, "planes3_jacobi_sweep": 34,
        "planes3_gs_sweep": 34, "restrict_pt": 0, "restrict_pt_c": 40,
@@ -362,7 +380,7 @@ OPS = {"rb_sweep": 8, "restrict_residual_pt": 9, "restrict_residual_pt_c": 40,
        "restrict_pt_dist_2d": 0, "restrict_pt_dist_2d_c": 13,
        "prolong_add_dist_2d": 3, "rb_half_sweep": 4, "rb_sweep2": 16,
        "rb_residual_restrict": 17, "rb_residual_restrict_c": 40,
-       "prolong_correct_rb": 12}
+       "prolong_correct_rb": 12, "residual_mass_quad": 40}
 # f32 arrays of fine points each kernel reads or writes once (fine, coarse)
 ARRAYS = {"rb_sweep": (3, 0), "restrict_residual_pt": (2, 1),
           "prolong_linear": (1, 1), "prolong_linear_add": (2, 1),
@@ -380,11 +398,12 @@ ARRAYS = {"rb_sweep": (3, 0), "restrict_residual_pt": (2, 1),
           "residual_dist_2d": (3, 0), "restrict_pt_dist_2d": (1, 1),
           "prolong_add_dist_2d": (2, 1), "rb_half_sweep": (3, 0),
           "rb_sweep2": (3, 0), "rb_residual_restrict": (3, 1),
-          "prolong_correct_rb": (3, 1)}
+          "prolong_correct_rb": (3, 1), "residual_mass_quad": (2, 0)}
 RTOL_64 = {"C": 1e-7, "G1": 1e-6}     # above the f32 floor at 64^3
 # K1-K3 and K5-K9 must agree to 1e-6 of the reference's magnitude (bitwise is
 # expected: same association order, kernels built with --fmad=false); K4
-# to 1e-5 relative (its f64 sum runs in another order than torch.sum).
+# and K38 to 1e-5 relative (their f64 sums run in another order than
+# torch.sum; K38 against K4, two associations of the same form).
 TOL_STENCIL = 1e-6
 TOL_NORM = 1e-5
 # what a later phase compares with: phase 5's 512^3 u (on the host)
@@ -3474,6 +3493,147 @@ def phase_fusion(torch, np, mg, card, main):
     return total, out
 
 
+def mass_tables(torch, mg, lm, diagonal, dtype, dev):
+    """(offsets, tables) of the consistent P1 mass on an lm^3 level with
+    this diagonal, scaled as build_lean_hierarchy scales them."""
+    from multigrid_dolfinx_tpu_torch.fem.fast_const import mass_class_tables
+
+    problem = dataclasses.replace(mg.models.poisson3d().problem,
+                                  diagonal=diagonal)
+    offs, tables = mass_class_tables(problem)
+    return offs, torch.as_tensor(tables * (4.0 / (lm - 1)) ** 3, dtype=dtype,
+                                 device=dev)
+
+
+def generic_tables(torch, rng, dtype, dev):
+    """A random class table on all 27 offsets, diagonally dominant (a
+    well-conditioned r^T M r), its interior column symmetrised."""
+    t = rng.uniform(0.0, 1.0, (27, 27))
+    t[13] += 30.0
+    t[:, 13] = 0.5 * (t[:, 13] + t[::-1, 13])    # BOX27[26 - k] = -BOX27[k]
+    return BOX27, torch.as_tensor(t, dtype=dtype, device=dev)
+
+
+def phase_mass_quad_kernel(torch, np, mg, records):
+    """K38 against its plain version within TOL_NORM and two calls bitwise
+    equal, in f32 and f64 at lm in KERNEL_LMS, on the P1 mass tables of
+    both diagonals (there also against K4 within TOL_NORM) and, up to
+    MASS_GENERIC_LM, a random 27-offset table; then kernel / plain times
+    at 513^3 f32 beside K4's."""
+    from multigrid_dolfinx_tpu_torch.ops import cuda as kcuda
+    from multigrid_dolfinx_tpu_torch.ops.cuda import stencil3d_norm as sn
+
+    name = "residual_mass_quad"
+    rng = np.random.default_rng(SEED + 31)
+    dev = torch.device("cuda")
+    err, err_k4 = {name: 0.0}, {name: 0.0}
+    kcuda.reset_launch_counts()
+    for dtype in (torch.float32, torch.float64):
+        for lm in KERNEL_LMS:
+            wc, woff = level_weights(mg, lm)
+            v, f = (torch.from_numpy(rng.standard_normal((lm,) * 3)).to(
+                dev, dtype) for _ in range(2))
+            sets = [(d, *mass_tables(torch, mg, lm, d, dtype, dev))
+                    for d in ("right", "left")]
+            if lm <= MASS_GENERIC_LM:
+                sets.append((None, *generic_tables(torch, rng, dtype, dev)))
+            parts, where = [], f"lm={lm} {str(dtype)[6:]}"
+            for diag, offs, tables in sets:
+                q = sn.residual_mass_quad(v, f, tables, offs, lm, wc, woff)
+                q2 = sn.residual_mass_quad(v, f, tables, offs, lm, wc, woff)
+                ref = sn.residual_mass_quad_ref(v, f, tables, offs, lm, wc,
+                                                woff)
+                torch.cuda.synchronize()
+                label = diag or "27-offset"
+                check_close(name, q, ref, TOL_NORM, err, parts,
+                            f"{where} {label}")
+                if not torch.equal(q, q2):
+                    raise AssertionError(f"{name} at {where} {label}: two "
+                                         "calls differ")
+                if diag is not None:
+                    q4 = sn.residual_tet_quad(v, f, lm, wc, woff, diag)
+                    check_close(name, q, q4, TOL_NORM, err_k4, parts,
+                                f"{where} {label} against K4")
+            print(f"phase 31 {where}: |K38-plain| and |K38-K4| (right, left; "
+                  "then the 27-offset table's |K38-plain|) " + " ".join(parts)
+                  + "; two calls bitwise equal")
+            del v, f, sets
+    if kcuda.launch_counts()[name] == 0:
+        raise AssertionError(f"launch counter did not move: {name}")
+    torch.cuda.empty_cache()
+
+    lm = TIMED_LM
+    wc, woff = level_weights(mg, lm)
+    v, f = (torch.from_numpy(rng.standard_normal((lm,) * 3).astype(
+        np.float32)).to(dev) for _ in range(2))
+    offs, tables = mass_tables(torch, mg, lm, "right", torch.float32, dev)
+    pairs = {name: (
+        lambda: sn.residual_mass_quad(v, f, tables, offs, lm, wc, woff),
+        lambda: sn.residual_mass_quad_ref(v, f, tables, offs, lm, wc, woff))}
+    time_pairs(torch, pairs, err, records, f"phase 31 time at lm={lm} f32",
+               {name: (lm ** 3, 0)})
+    k4_ms = min(time_ms(torch, lambda: sn.residual_tet_quad(
+        v, f, lm, wc, woff, "right")) for _ in range(2))
+    print(f"phase 31 K4 residual_tet_quad at lm={lm} f32 on the same v, f: "
+          f"{k4_ms:.4f} ms; K38 / K4 {records[name]['ms'] / k4_ms:.3f}")
+    del v, f
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err[name], "max_abs_err_vs_k4": err_k4[name],
+            "k4_ms": k4_ms}
+
+
+def phase_mass_quad_path(torch, np, mg, card, main):
+    """Phase 5's configuration with the mass uncertified
+    (uniform_p1_mass=None), the check on K38: phase 5's cycles, u bitwise,
+    res_hist within TOL_NORM, K38 launched once a check and K4 never;
+    the check's ms on both masses."""
+    from multigrid_dolfinx_tpu_torch.ops import cuda as kcuda
+    from multigrid_dolfinx_tpu_torch.solver.fmg import check_norm
+
+    cyc = cycle_spec(mg, 1e-8)
+    cfg = mg.models.poisson3d(finest_level=6, coarsest_level=0,
+                              coarsest_elements=8, dtype="float32", cycle=cyc)
+    certified = mg.build_lean_hierarchy(cfg, device=torch.device("cuda"))
+    hier = dataclasses.replace(certified, M_fine=dataclasses.replace(
+        certified.M_fine, uniform_p1_mass=None))
+    torch.cuda.synchronize()
+    kcuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = mg.solve(hier, cyc)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = kcuda.launch_counts()
+    hist = res.res_hist[:res.num_cycles].double().cpu().numpy()
+    ref = np.asarray(main["res_hist"])
+    same = torch.equal(res.u.cpu(), KEPT["u_main"])
+    rel = (float(np.max(np.abs(hist - ref) / np.abs(ref)))
+           if len(hist) == len(ref) else math.inf)
+    b = hier.finest.b
+    check_ms = {k: min(time_ms(torch, lambda: check_norm(h, res.u, b))
+                       for _ in range(2))
+                for k, h in (("K38", hier), ("K4", certified))}
+    launches = {k: counts.get(k, 0)
+                for k in ("residual_mass_quad", "residual_tet_quad")}
+    print(f"phase 32 512^3 f32 uncertified mass: {res.num_cycles} cycles "
+          f"after FMG (phase 5: {main['cycles']}), converged={res.converged}, "
+          f"res_hist {hist.tolist()} (phase 5 {ref.tolist()}, max rel diff "
+          f"{rel:.3e}), u bitwise phase 5's: {same}, solve {secs:.3f} s, "
+          f"launches {launches}; the check {check_ms['K38']:.4f} ms on K38, "
+          f"{check_ms['K4']:.4f} ms on K4 (certified) on [{card}]")
+    if not (res.converged and res.num_cycles == main["cycles"] and same):
+        raise AssertionError("uncertified mass: not phase 5's solve")
+    if not rel <= TOL_NORM:
+        raise AssertionError(f"uncertified mass: res_hist off by {rel:.3e}")
+    if launches != {"residual_mass_quad": res.num_cycles + 1,
+                    "residual_tet_quad": 0}:
+        raise AssertionError(f"uncertified mass: check launches {launches}")
+    del hier, certified, res
+    torch.cuda.empty_cache()
+    return counts, {"cycles": len(hist), "res_hist": hist.tolist(),
+                    "solve_s": secs, "check_ms": check_ms,
+                    "launches": launches}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=ROOT / "build" / "chip_smoke",
@@ -3562,6 +3722,11 @@ def main() -> int:
         cycle_kernels = phase_cycle_kernels(torch, np, mg, records)
         phase = enter("30 fused and W/F cycles at 512^3")
         counts_fusion, fusion = phase_fusion(torch, np, mg, card, main)
+        phase = enter("31 kernel K38")
+        mass_quad = phase_mass_quad_kernel(torch, np, mg, records)
+        phase = enter("32 uncertified mass at 512^3")
+        counts_mq, mass_quad_path = phase_mass_quad_path(torch, np, mg, card,
+                                                         main)
     except Exception:
         print(f"FAILED in phase {phase}:")
         traceback.print_exc(file=sys.stdout)
@@ -3580,6 +3745,7 @@ def main() -> int:
                            counts_dist[k] if k in KERNELS_DIST else
                            counts_dist2d[k] if k in KERNELS_DIST2D else
                            counts_fusion[k] if k in KERNELS_CYCLE else
+                           counts_mq[k] if k == "residual_mass_quad" else
                            counts_2d[k])
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "build_s": build_s, "main": main,
@@ -3589,7 +3755,8 @@ def main() -> int:
          "planes2": planes2, "var2d_2049": small_var2d, "var2d": var2d,
          "dist_kernels_1025": dist_kernels, "dist3d": dist3d,
          "dist2d": dist2d, "cycle_kernels": cycle_kernels,
-         "fusion": fusion, "phase_s": phase_s, "kernels": list(records.values())}, indent=1))
+         "fusion": fusion, "mass_quad": mass_quad,
+         "mass_quad_path": mass_quad_path, "phase_s": phase_s, "kernels": list(records.values())}, indent=1))
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

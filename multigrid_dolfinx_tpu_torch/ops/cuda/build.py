@@ -81,6 +81,9 @@ SIGNATURES = {
     "mg_tet_quad_partials": "i",
     "mg_residual_tet_quad_f32": "ppppiffidp",
     "mg_residual_tet_quad_f64": "ppppiddidp",
+    "mg_mass_quad_partials": "i",
+    "mg_residual_mass_quad_f32": "pppippiffp",
+    "mg_residual_mass_quad_f64": "pppippiddp",
     "mg_jacobi_sweep_2d_f32": "pppifffp",
     "mg_jacobi_sweep_2d_f64": "pppidddp",
     "mg_rb_sweep_2d_f32": "pppip",

@@ -213,6 +213,25 @@ def residual_tet_quad(v, f, lm, wc, woff, diagonal):
     return stencil3d_norm.residual_tet_quad_ref(v, f, lm, wc, woff, diagonal)
 
 
+def mass_quad_admits(M: StencilOperator) -> bool:
+    """Does K38 compute r^T M r for this mass operator: 3D class tables of
+    shape (K, 27) on radius-1 offsets, the centre among them, in a
+    point-symmetric pattern (the JAX kernel's operator conditions,
+    stencil3d_norm.py residual_mass_quad; its TPU layout conditions do not
+    apply to unpadded storage)?"""
+    return (M.class_tables is not None
+            and stencil3d_norm.mass_quad_refusal(M.class_tables,
+                                                 M.offsets) is None)
+
+
+def residual_mass_quad(v, f, tables, offsets, lm, wc, woff):
+    if _on_cuda(v):
+        return stencil3d_norm.residual_mass_quad(v, f, tables, offsets, lm,
+                                                 wc, woff)
+    return stencil3d_norm.residual_mass_quad_ref(v, f, tables, offsets, lm,
+                                                 wc, woff)
+
+
 def jacobi_sweep_2d(v, df, lm, w):
     if _on_cuda(v):
         return stencil2d.jacobi_sweep(v, df, lm, w)

@@ -4,13 +4,16 @@ Mirrors `multigrid_dolfinx_tpu.solver.fmg`.  PyTorch runs eagerly, so
 `tolerance_solve` is a host loop with one scalar read per cycle (the
 residual norm); the histories are preallocated NaN-filled tensors on the
 device, as the JAX package's fixed-size buffers.  The per-cycle check
-r = f - A v, sqrt(r^T M r) runs as kernel K4 in one pass over v and f in
-3D; in 2D it is the residual kernel K7 and the plain class-table mass
-norm, as the JAX package computes it (it has no fused 2D norm kernel),
-and on a stored-planes finest level the residual kernel (K15 in 3D,
-K22 in 2D) and the plain class-table norm, as the JAX package falls
-back to; on a P2 parity finest level the residual K19 and the raw mass
-quadratic form K21.
+r = f - A v, sqrt(r^T M r) on a 3D const-7 level is one kernel pass over
+v and f, routed by the mass operator as the JAX package routes it
+(fmg._fused_residual_norm): K4 where `uniform_p1_mass` certifies the
+uniform P1 mass, else K38 on the class tables, and where K38 does not
+admit them the residual and the plain class-table norm.  In 2D it is the
+residual kernel K7 and the plain class-table mass norm, as the JAX
+package computes it (it has no fused 2D norm kernel), and on a
+stored-planes finest level the residual kernel (K15 in 3D, K22 in 2D)
+and the plain class-table norm, as the JAX package falls back to; on a
+P2 parity finest level the residual K19 and the raw mass quadratic form K21.
 """
 from __future__ import annotations
 
@@ -74,11 +77,15 @@ def error_norm(hier: Hierarchy, u: torch.Tensor) -> torch.Tensor:
 
 def check_norm(hier: Hierarchy, v: torch.Tensor,
                f: torch.Tensor) -> torch.Tensor:
-    """The per-cycle check sqrt(r^T M r), r = f - A v: through kernel K4
-    on a 3D const-7 level; through K19 and K21 on a P2 parity level
-    (exact at face rows too, so it also gives ||b||_M of the zero
-    iterate); through the residual kernel (K7 in 2D, K15 / K22 on 3D / 2D
-    planes) and the class-table norm otherwise; in v's dtype."""
+    """The per-cycle check sqrt(r^T M r), r = f - A v, in v's dtype.  On
+    a 3D const-7 level the mass operator's structure picks the route, as
+    the JAX package's does: kernel K4 for a mass certified the uniform P1
+    mass, kernel K38 on the class tables of any other that K38 admits
+    (dispatch.mass_quad_admits), else the residual and the plain
+    class-table norm.  On a P2 parity level K19 and K21 (exact at face
+    rows too, so it also gives ||b||_M of the zero iterate); otherwise
+    the residual kernel (K7 in 2D, K15 / K22 on 3D / 2D planes) and the
+    class-table norm."""
     lv = hier.finest
     if lv.A.parity_tables is not None:
         M = hier.M_fine
@@ -89,8 +96,15 @@ def check_norm(hier: Hierarchy, v: torch.Tensor,
     if v.ndim == 2 or lv.A.planes is not None:
         return residual_norm(hier, compute_residual(lv, v, f))
     wc, woff = dispatch.const7_weights(lv.A)
-    q = dispatch.residual_tet_quad(v, f, lv.n + 1, wc, woff,
-                                   hier.M_fine.uniform_p1_mass)
+    M = hier.M_fine
+    if M.uniform_p1_mass in ("right", "left"):
+        q = dispatch.residual_tet_quad(v, f, lv.n + 1, wc, woff,
+                                       M.uniform_p1_mass)
+    elif dispatch.mass_quad_admits(M):
+        q = dispatch.residual_mass_quad(v, f, M.class_tables, M.offsets,
+                                        lv.n + 1, wc, woff)
+    else:
+        return residual_norm(hier, compute_residual(lv, v, f))
     return torch.sqrt(torch.clamp(q, min=0.0)).to(v.dtype)
 
 

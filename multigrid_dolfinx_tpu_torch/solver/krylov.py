@@ -54,9 +54,10 @@ def mgcg_solve(hier: Hierarchy, spec: CycleSpec,
     fmg_start=True seeds CG with one fixed-mode Full-Multigrid pass
     (mu0 = 1 on every level), so the Krylov loop starts at the
     discretisation error; else CG starts from zero.  A p is
-    apply_operator's -r(p, 0).  After every iteration the check ||b - A x||_M
-    (fmg.check_norm: K4 in 3D) stops the loop at rn <= tol or rn <= rtol *
-    ||b - A 0||_M (rtol > 0); a non-finite rn stops it as diverged."""
+    apply_operator's -r(p, 0).  After every iteration the check
+    ||b - A x||_M (fmg.check_norm: K4 or K38 in 3D, by the mass operator)
+    stops the loop at rn <= tol or rn <= rtol * ||b - A 0||_M (rtol > 0);
+    a non-finite rn stops it as diverged."""
     L = hier.num_levels - 1
     lv = hier.finest
     f = lv.b

@@ -21,7 +21,13 @@ It imports nothing of JAX; the caller does the jax -> numpy step, e.g.
     }
 
 with `dinv` the stored 1/diag A of an assembled hierarchy (None for a
-lean one, whose const operator gives it).  A level of a P2 hierarchy
+lean one, whose const operator gives it).  `"uniform_p1_mass"` is carried
+across as it is given: a diagonal ('right' / 'left') certifies the class
+tables as the uniform P1 mass and the 3D check runs on kernel K4, while
+None (the JAX StencilOperator's default, a mass built without the
+certificate) leaves them uncertified and the check runs on kernel K38
+over the tables (solver/fmg.check_norm).  Without the key the config's
+diagonal certifies them.  A level of a P2 hierarchy
 (the config has degree 2) carries `"parity_tables":
 np.asarray(lv.A.parity_tables)` and its `offsets` (and may carry its
 lattice size `"lm"`), and the mass comes as `"m_parity_tables"` and

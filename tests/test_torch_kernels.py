@@ -1,4 +1,6 @@
-"""The PyTorch port's kernels K1-K4 (plain versions) against the JAX package.
+"""The PyTorch port's kernels K1-K4 (plain versions) against the JAX package;
+K38's CPU dispatch and its wrapper's refusal of CPU tensors (its twin
+meets the JAX package in tests/test_torch_mass_quad.py).
 
 Each CUDA kernel of `multigrid_dolfinx_tpu_torch/ops/cuda` has a plain
 PyTorch version that the CPU path runs and that the card compares the
@@ -43,6 +45,8 @@ torch.set_num_threads(1)
 
 RTOL = 1e-12
 CSRC = Path(build.CSRC_DIR)
+AXIS7 = ((-1, 0, 0), (0, -1, 0), (0, 0, -1), (0, 0, 0), (0, 0, 1),
+         (0, 1, 0), (1, 0, 0))
 
 
 def _close(port, ref):
@@ -166,12 +170,18 @@ def test_dispatch_takes_plain_version_on_cpu():
     assert torch.equal(
         dispatch.residual_tet_quad(v, f, lm, wc, woff, "right"),
         stencil3d_norm.residual_tet_quad_ref(v, f, lm, wc, woff, "right"))
+    tables = torch.ones((7, 27), dtype=v.dtype)
+    assert torch.equal(
+        dispatch.residual_mass_quad(v, f, tables, AXIS7, lm, wc, woff),
+        stencil3d_norm.residual_mass_quad_ref(v, f, tables, AXIS7, lm, wc,
+                                              woff))
     assert all(n == 0 for n in kcuda.launch_counts().values())
     assert build._LIB is None
 
 
 @pytest.mark.parametrize("kernel", ["rb_sweep", "restrict_residual_pt",
-                                    "prolong_linear", "residual_tet_quad"])
+                                    "prolong_linear", "residual_tet_quad",
+                                    "residual_mass_quad"])
 def test_kernel_wrappers_refuse_cpu_tensors(kernel):
     """The wrappers launch only on CUDA tensors; a CPU tensor raises
     before anything is built."""
@@ -184,6 +194,8 @@ def test_kernel_wrappers_refuse_cpu_tensors(kernel):
         "prolong_linear": lambda: stencil3d.prolong_linear(c, 17, v),
         "residual_tet_quad": lambda: stencil3d_norm.residual_tet_quad(
             v, v, 17, 0.75, -0.125, "right"),
+        "residual_mass_quad": lambda: stencil3d_norm.residual_mass_quad(
+            v, v, torch.ones((7, 27)), AXIS7, 17, 0.75, -0.125),
     }
     with pytest.raises(ValueError, match="CUDA tensor"):
         calls[kernel]()
