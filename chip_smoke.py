@@ -9,14 +9,18 @@ Phases (each prints one line; any failure exits nonzero with no result):
   1. the device: torch's name for it, and nvidia-smi's name and power limit;
   2. build of the CUDA kernels from multigrid_dolfinx_tpu_torch/csrc;
   3. each 3D kernel (K1-K4) against its plain PyTorch version on the card,
-     on inputs from numpy's default_rng, at lm in {9, 17, 65, 129, 257,
-     513}, and kernel / plain times at the main path's 513^3 / 257^3
-     shapes;
+     on inputs from numpy's default_rng, in f32 and f64 at lm in {9, 17,
+     65, 129, 257, 513} and at 33 and 100 (ragged tiles and z segments):
+     K1 bitwise, K4 within TOL_NORM with two calls bitwise equal and
+     within 1e-6 relative of K38; kernel / plain times at the main path's
+     513^3 / 257^3 shapes; and, in turns at 513^3 f32, K1 beside the two
+     half sweeps it replaces and K4 beside K38 (each must be faster);
   4. the 3D slice at 64^3 f32 on the card against the plain path on the
      CPU;
   5. the 3D main path: 512^3 f32 lean FMG + V(2,2) solve to rtol 1e-8,
-     with every kernel's launches counted, and 10 V-cycles timed with CUDA
-     events;
+     with every kernel's launches counted (K1 one launch a sweep, the half
+     sweep never), 10 V-cycles and the check timed with CUDA events, and
+     both broken down by kernel with torch.profiler;
   6. each 2D kernel (K5-K9) against its plain version in f32 and f64 at
      lm in {9, 17, 65, 257, 1025, 2049, 8193}, and kernel / plain times
      at 8193^2 f32;
@@ -153,7 +157,7 @@ Phases (each prints one line; any failure exits nonzero with no result):
      kernel and halo / collective time, one exchange timed alone; each
      rank's strip comes back through a file and must equal phase 9's u
      (and the single-device Jacobi u) exactly, in the same cycle count;
- 29. the red-black half sweep (K1's kernel, one colour) and the fusion
+ 29. the red-black half sweep (one colour of K1) and the fusion
      kernels K35-K37 (two sweeps; a sweep + residual + P^T; the
      correction + a sweep) against their plain versions and against the
      unfused CUDA chains they replace (two half sweeps = K1, K1 twice, K1
@@ -161,11 +165,12 @@ Phases (each prints one line; any failure exits nonzero with no result):
      kernel, plain and unfused-chain times at 513^3 f32;
  30. (a) phase 5's configuration with each CycleSpec.fusion set of
      FUSION_SETS: phase 5's cycle count, u bitwise phase 5's, exactly the
-     fused kernels each set must run launched, and ms a V-cycle of each
-     set beside the unfused cycle, in turns; (b) 64^3 f32 with every
-     fusion on the card: res_hist and u bitwise the plain path's on the
-     CPU; (c) W(2,2) and F(2,2) at 512^3 f32 with every fusion: converged,
-     u(1/2,1/2,1/2) within 1e-2 of 2.5, cycles and ms a cycle;
+     fused kernels each set must run launched (and no half sweep), and ms
+     a V-cycle of each set beside the unfused cycle, in turns; (b) 64^3
+     f32 with every fusion on the card: res_hist and u bitwise the plain
+     path's on the CPU; (c) W(2,2) and F(2,2) at 512^3 f32 with every
+     fusion: converged, u(1/2,1/2,1/2) within 1e-2 of 2.5, cycles and ms
+     a cycle;
  31. K38 (residual_mass_quad, the residual and r^T M r for any radius-1
      class-table mass) against its plain version within TOL_NORM, two
      calls bitwise equal, in f32 and f64 at lm in KERNEL_LMS on seeded
@@ -185,8 +190,9 @@ never called by the port) and its bound: the larger of the bytes it must
 move over 3.35 TB/s and its f32 operations over 67 TFLOP/s (H100 SXM).
 Before them a line gives each phase's wall seconds.  The second-to-last
 line is the kernels' JSON record (K1-K38 and the half sweep, each with the
-launches of the main path that runs it; phase 30's summed for the half
-sweep and K35-K37, phase 32's for K38), the last line {"ok": true,
+launches of the main path that runs it; phase 30's summed for K35-K37,
+phase 32's for K38; the half sweep's are phase 30's, 0: no main path
+runs it since K1 does both colours in one launch), the last line {"ok": true,
 "device": {...}}.  nvcc's report and the full record go to --out (default
 build/chip_smoke/, under the checkout).  Imports nothing of JAX.
 """
@@ -205,6 +211,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SEED = 0
 KERNEL_LMS = (9, 17, 65, 129, 257, 513)
+# K1 and K4 also at sizes whose column tiles and z segments are ragged
+KERNEL_LMS_RAGGED = (33, 100)
 TIMED_LM = 513            # the main path's finest level (512^3 elements)
 KERNEL_LMS_2D = (9, 17, 65, 257, 1025, 2049, 8193)
 TIMED_LM_2D = 8193        # the 2D production finest level (8192^2 elements)
@@ -400,12 +408,14 @@ ARRAYS = {"rb_sweep": (3, 0), "restrict_residual_pt": (2, 1),
           "rb_sweep2": (3, 0), "rb_residual_restrict": (3, 1),
           "prolong_correct_rb": (3, 1), "residual_mass_quad": (2, 0)}
 RTOL_64 = {"C": 1e-7, "G1": 1e-6}     # above the f32 floor at 64^3
-# K1-K3 and K5-K9 must agree to 1e-6 of the reference's magnitude (bitwise is
-# expected: same association order, kernels built with --fmad=false); K4
-# and K38 to 1e-5 relative (their f64 sums run in another order than
-# torch.sum; K38 against K4, two associations of the same form).
+# K2, K3 and K5-K9 must agree to 1e-6 of the reference's magnitude (bitwise
+# is expected: same association order, kernels built with --fmad=false;
+# K1 is held to exactly 0); K4 and K38 to 1e-5 relative (their f64 sums
+# run in another order than torch.sum; K38 against K4, two associations
+# of the same form), and K4 to 1e-6 relative of K38 in phase 3.
 TOL_STENCIL = 1e-6
 TOL_NORM = 1e-5
+TOL_K4_K38 = 1e-6
 # what a later phase compares with: phase 5's 512^3 u (on the host)
 KEPT = {}
 
@@ -476,50 +486,76 @@ def level_weights(mg, lm):
 
 
 def phase_kernels(torch, np, mg, records):
+    """K1-K4 against their plain versions on the card: K1 bitwise, K2 and
+    K3 within TOL_STENCIL, K4 within TOL_NORM, two K4 calls bitwise equal
+    and K4 within TOL_K4_K38 of K38 on the same inputs, in f32 and f64 at
+    lm in KERNEL_LMS and KERNEL_LMS_RAGGED; then kernel / plain times at
+    the main path's shapes, and, in turns, K1 beside the two half sweeps
+    it replaces and K4 beside K38."""
     from multigrid_dolfinx_tpu_torch.ops import cuda as kcuda
+    from multigrid_dolfinx_tpu_torch.ops.cuda import build
     from multigrid_dolfinx_tpu_torch.ops.cuda import stencil3d as s3
     from multigrid_dolfinx_tpu_torch.ops.cuda import stencil3d_norm as sn
 
     rng = np.random.default_rng(SEED)
     dev = torch.device("cuda")
 
-    def rand(lm):
-        a = rng.standard_normal((lm,) * 3).astype(np.float32)
-        return torch.from_numpy(a).to(dev)
+    def rand(lm, dtype=torch.float32):
+        a = rng.standard_normal((lm,) * 3)
+        return torch.from_numpy(a).to(dev, dtype)
 
     err = {k: 0.0 for k in KERNELS_3D}
+    err_k38 = 0.0
     kcuda.reset_launch_counts()
-    for lm in KERNEL_LMS:
-        wc, woff = level_weights(mg, lm)
-        v, f = rand(lm), rand(lm)
-        cases = [
-            ("rb_sweep", s3.rb_sweep(v, f, lm, wc, woff),
-             s3.rb_sweep_ref(v, f, lm, wc, woff), TOL_STENCIL),
-            ("residual_tet_quad", sn.residual_tet_quad(v, f, lm, wc, woff, "right"),
-             sn.residual_tet_quad_ref(v, f, lm, wc, woff, "right"), TOL_NORM),
-        ]
-        if lm > 9:
-            lmc = (lm + 1) // 2
-            c = rand(lmc)
-            cases += [
-                ("restrict_residual_pt",
-                 s3.restrict_residual_pt(v, f, lm, lmc, wc, woff),
-                 s3.restrict_residual_pt_ref(v, f, lm, lmc, wc, woff),
-                 TOL_STENCIL),
-                ("prolong_linear", s3.prolong_linear(c, lm),
-                 s3.prolong_linear_ref(c, lm), TOL_STENCIL),
-                ("prolong_linear_add", s3.prolong_linear(c, lm, v),
-                 s3.prolong_linear_ref(c, lm, v), TOL_STENCIL),
+    for dtype in (torch.float32, torch.float64):
+        for lm in sorted(KERNEL_LMS + KERNEL_LMS_RAGGED):
+            wc, woff = level_weights(mg, lm)
+            v, f = rand(lm, dtype), rand(lm, dtype)
+            q4 = sn.residual_tet_quad(v, f, lm, wc, woff, "right")
+            cases = [
+                ("rb_sweep", s3.rb_sweep(v, f, lm, wc, woff),
+                 s3.rb_sweep_ref(v, f, lm, wc, woff), 0.0),
+                ("residual_tet_quad", q4,
+                 sn.residual_tet_quad_ref(v, f, lm, wc, woff, "right"),
+                 TOL_NORM),
             ]
-        torch.cuda.synchronize()
-        parts = []
-        for name, out, ref, tol in cases:
-            check_close(name, out, ref, tol, err, parts, f"lm={lm}")
-        print(f"phase 3 lm={lm}: max|kernel-plain| " + " ".join(parts))
+            if lm % 2 == 1 and lm > 9:
+                lmc = (lm + 1) // 2
+                c = rand(lmc, dtype)
+                cases += [
+                    ("restrict_residual_pt",
+                     s3.restrict_residual_pt(v, f, lm, lmc, wc, woff),
+                     s3.restrict_residual_pt_ref(v, f, lm, lmc, wc, woff),
+                     TOL_STENCIL),
+                    ("prolong_linear", s3.prolong_linear(c, lm),
+                     s3.prolong_linear_ref(c, lm), TOL_STENCIL),
+                    ("prolong_linear_add", s3.prolong_linear(c, lm, v),
+                     s3.prolong_linear_ref(c, lm, v), TOL_STENCIL),
+                ]
+            q4_again = sn.residual_tet_quad(v, f, lm, wc, woff, "right")
+            offs, tables = mass_tables(torch, mg, lm, "right", dtype, dev)
+            q38 = sn.residual_mass_quad(v, f, tables, offs, lm, wc, woff)
+            torch.cuda.synchronize()
+            where = f"lm={lm} {str(dtype)[6:]}"
+            parts = []
+            for name, out, ref, tol in cases:
+                check_close(name, out, ref, tol, err, parts, where)
+            if not torch.equal(q4, q4_again):
+                raise AssertionError(f"residual_tet_quad at {where}: two "
+                                     "calls differ")
+            rel = float(abs(q4 - q38) / abs(q38))
+            err_k38 = max(err_k38, rel)
+            if not rel <= TOL_K4_K38:
+                raise AssertionError(f"residual_tet_quad at {where}: "
+                                     f"{rel:.3e} relative from K38")
+            print(f"phase 3 {where}: max|kernel-plain| " + " ".join(parts)
+                  + f"; K4 two calls bitwise equal, |K4-K38|/|K38| {rel:.3e}")
+            del v, f, cases
     counts = kcuda.launch_counts()
     missing = [k for k in KERNELS_3D if counts.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"launch counters did not move: {missing}")
+    torch.cuda.empty_cache()
 
     # kernel vs plain times at the main path's shapes (finest 513^3 and
     # the 257^3 level below it), plain first, then kernel, then plain
@@ -549,8 +585,40 @@ def phase_kernels(torch, np, mg, records):
         c[None, None], size=(lm,) * 3, mode="trilinear", align_corners=True)}
     time_pairs(torch, pairs, err, records, f"phase 3 time at lm={lm}", shape,
                library)
-    del v, f, c
+
+    # in turns: K1 beside the two half sweeps it replaces (red out of
+    # place, black in place: its one-colour design), K4 beside K38
+    lib = build.library()
+    halves_out = torch.empty_like(v)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def halves():
+        for src, color in ((v, 0), (halves_out, 1)):
+            build.check(lib.mg_rb_half_sweep_f32(
+                src.data_ptr(), f.data_ptr(), halves_out.data_ptr(), lm,
+                1.0 / wc, -woff, color, stream), "rb_half_sweep")
+
+    offs, tables = mass_tables(torch, mg, lm, "right", torch.float32, dev)
+    turns = {
+        "rb_sweep": (pairs["rb_sweep"][0], halves, "two half sweeps"),
+        "residual_tet_quad": (
+            pairs["residual_tet_quad"][0],
+            lambda: sn.residual_mass_quad(v, f, tables, offs, lm, wc, woff),
+            "K38"),
+    }
+    beside = {}
+    for name, (kern, other, label) in turns.items():
+        o1, k1, k2, o2 = (min(time_ms(torch, fn), time_ms(torch, fn))
+                          for fn in (other, kern, kern, other))
+        beside[name] = {"ms": min(k1, k2), label.replace(" ", "_") + "_ms":
+                        min(o1, o2)}
+        print(f"phase 3 in turns at lm={lm} f32 {name}: kernel {k1:.4f}/"
+              f"{k2:.4f} ms, {label} {o1:.4f}/{o2:.4f} ms")
+        if not max(k1, k2) < min(o1, o2):
+            raise AssertionError(f"{name} is not faster than {label}")
+    del v, f, c, halves_out
     torch.cuda.empty_cache()
+    return {"max_rel_k4_k38": err_k38, "beside": beside}
 
 
 def time_pairs(torch, pairs, err, records, label, shape, library=None,
@@ -669,6 +737,8 @@ def phase_main(torch, np, mg, card):
                if counts.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"main path did not launch {missing}")
+    if counts.get("rb_half_sweep", 0):
+        raise AssertionError("K1 ran as half sweeps on the main path")
 
     ms, rooted = time_vcycles(torch, mg, hier, cyc, res.u)
     dofs = lm ** 3
@@ -676,11 +746,84 @@ def phase_main(torch, np, mg, card):
           f"DOF/s at {dofs} DOFs on [{card}]")
     print("phase 5 V-cycle rooted at lm (ms): " + ", ".join(
         f"{k}: {t:.4f}" for k, t in rooted.items()))
+    from multigrid_dolfinx_tpu_torch.solver.fmg import check_norm
+
+    L = hier.num_levels - 1
+    holder = [res.u.clone()]
+
+    def one_cycle():
+        holder[0] = mg.vcycle(hier, cyc, L, holder[0], hier.finest.b)
+
+    def one_check():
+        check_norm(hier, res.u, hier.finest.b)
+
+    check_ms = min(time_ms(torch, one_check), time_ms(torch, one_check))
+    print(f"phase 5 check: {check_ms:.4f} ms on [{card}]")
+    breakdown = {"vcycle": kernel_breakdown(torch, one_cycle, 10),
+                 "check": kernel_breakdown(torch, one_check, 1)}
+    for what, b in breakdown.items():
+        print(f"phase 5 profile of {b['calls']} {what}(s): "
+              + (f"{b['kernel_ms']:.4f} ms of kernels in {b['wall_ms']:.4f} "
+                 f"ms a call (busy {b['busy']:.4f}); " + ", ".join(
+                     f"{k} {t:.4f} ms ({100 * t / b['kernel_ms']:.1f} %)"
+                     for k, t in b["by_kernel"].items())
+                 if b.get("kernel_ms") else b.get("error", "no device time")))
+    del holder
     return counts, {"build_s": t1 - t0, "solve_s": t2 - t1,
                     "cycles": res.num_cycles, "res_hist": hist,
                     "u_mid": u_mid, "ms_per_vcycle": ms,
                     "dof_per_s": dofs / (ms * 1e-3), "peak_gb": peak_gb,
-                    "ms_per_vcycle_rooted_at_lm": rooted}
+                    "ms_per_vcycle_rooted_at_lm": rooted,
+                    "check_ms": check_ms, "profile": breakdown}
+
+
+# kernel names (substrings of the CUDA symbols) -> the port's labels
+KERNEL_LABELS = (("rb_zmarch_kernel", "K1 rb_sweep"),
+                 ("rb_color_kernel", "rb_half_sweep"),
+                 ("restrict_residual_pt_kernel", "K2 restrict_residual_pt"),
+                 ("prolong_linear_kernel", "K3 prolong_linear"),
+                 ("tet_zmarch_kernel", "K4 residual_tet_quad"),
+                 ("sum_partials_kernel", "K4/K38 partial sum"),
+                 ("tail_down", "K13 tail_down"), ("tail_up", "K14 tail_up"))
+
+
+def kernel_breakdown(torch, fn, calls):
+    """Device time a call of fn() by kernel, from torch.profiler over
+    `calls` calls after a warm-up, beside the call's wall time from CUDA
+    events; {"error": ...} when the profiler gives no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            start.record()
+            for _ in range(calls):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+    except Exception as exc:      # the profiler is a measurement aid only
+        return {"calls": calls, "error": f"profiler failed: {exc!r}"}
+    by = {}
+    for e in events:
+        # kernel events only: an aten op's own row repeats its kernels' time
+        us = e.self_device_time_total
+        if e.device_type != torch.autograd.DeviceType.CUDA or us <= 0:
+            continue
+        label = next((lab for key, lab in KERNEL_LABELS if key in e.key),
+                     e.key[:60])
+        by[label] = by.get(label, 0.0) + us / 1e3 / calls
+    kernel_ms = sum(by.values())
+    wall_ms = start.elapsed_time(end) / calls
+    if kernel_ms <= 0:
+        return {"calls": calls, "error": "no device time in the profile"}
+    return {"calls": calls, "wall_ms": wall_ms, "kernel_ms": kernel_ms,
+            "busy": kernel_ms / wall_ms,
+            "by_kernel": dict(sorted(by.items(), key=lambda kv: -kv[1]))}
 
 
 def time_vcycles(torch, mg, hier, cyc, u):
@@ -3391,6 +3534,8 @@ def fused_solve(torch, mg, hier, cyc, label):
         if bool(counts.get(name, 0)) != want:
             raise AssertionError(f"{label}: {name} launched "
                                  f"{counts.get(name, 0)} times")
+    if counts.get("rb_half_sweep", 0):
+        raise AssertionError(f"{label}: K1 ran as half sweeps")
     return res, counts, secs
 
 
@@ -3670,7 +3815,7 @@ def main() -> int:
         build_s = phase_build(build, out_dir)
         records = {}
         phase = enter("3 kernels")
-        phase_kernels(torch, np, mg, records)
+        kernels_3d = phase_kernels(torch, np, mg, records)
         phase = enter("4 slice 64^3")
         phase_small_slice(torch, np, mg)
         phase = enter("5 main path 512^3")
@@ -3748,7 +3893,8 @@ def main() -> int:
                            counts_mq[k] if k == "residual_mass_quad" else
                            counts_2d[k])
     (out_dir / "chip_smoke.json").write_text(json.dumps(
-        {"card": card, "build_s": build_s, "main": main,
+        {"card": card, "build_s": build_s, "kernels_3d": kernels_3d,
+         "main": main,
          "reference": reference, "main_2d": main_2d, "slice3": slice3,
          "tail": tail, "planes": planes, "var_64": small_var, "var": var,
          "p2_kernels": p2_kernels, "p2_65": small_p2, "p2": p2,

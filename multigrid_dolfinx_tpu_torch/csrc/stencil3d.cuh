@@ -1,6 +1,6 @@
 // Device helpers shared by the kernels of stencil3d.cu,
 // stencil3d_cheby.cu, stencil3d_tail.cu, stencil3d_planes.cu,
-// stencil3d_dist.cu and stencil3d_cycle.cu.
+// stencil3d_dist.cu, stencil3d_cycle.cu and stencil3d_norm.cu.
 //
 // Storage is the logical lm^3 node box, C-order (z, y, x), contiguous and
 // unpadded.  Interior means 1 <= index <= lm-2 on every axis.
@@ -47,9 +47,15 @@ struct Flat {
 // 6-neighbour sum of the interior-masked field around interior point
 // (z, y, x), in the order (z-1)+(z+1)+(y-1)+(y+1)+(x-1)+(x+1)
 // (stencil3d.py _nbr_sum).  Neighbours outside the interior read as 0.
-template <typename T, typename At>
+// kAllInside: the caller knows all six neighbours lie inside (the point's
+// coordinates in [2, lm-3]), so the sum reads them with no checks, in the
+// same order.
+template <typename T, bool kAllInside = false, typename At>
 __device__ __forceinline__ T nbr_sum_at(const At& at, int z, int y, int x,
                                         int lm) {
+    if (kAllInside)
+        return ((((at(-1, 0, 0) + at(1, 0, 0)) + at(0, -1, 0)) +
+                 at(0, 1, 0)) + at(0, 0, -1)) + at(0, 0, 1);
     T zm = inside(z - 1, lm) ? at(-1, 0, 0) : T(0);
     T zp = inside(z + 1, lm) ? at(1, 0, 0) : T(0);
     T ym = inside(y - 1, lm) ? at(0, -1, 0) : T(0);
@@ -69,14 +75,16 @@ __device__ __forceinline__ T nbr_sum(const T* v, I p, int z, int y, int x,
 
 // The red-black candidate of K1 at point (z, y, x), global index p of f:
 // (f + (-woff) S) (1/wc) inside, f on the boundary (stencil3d.py
-// _gs_candidate).  inv_wc and neg_woff arrive rounded to T.
-template <typename T, typename At, typename I>
+// _gs_candidate).  inv_wc and neg_woff arrive rounded to T.  kInner: the
+// caller knows the point and its six neighbours are interior.
+template <typename T, bool kInner = false, typename At, typename I>
 __device__ __forceinline__ T rb_candidate(const At& v,
                                           const T* __restrict__ f, I p,
                                           int z, int y, int x, int lm,
                                           T inv_wc, T neg_woff) {
-    if (!interior(z, y, x, lm)) return f[p];
-    return (f[p] + neg_woff * nbr_sum_at<T>(v, z, y, x, lm)) * inv_wc;
+    if (!kInner && !interior(z, y, x, lm)) return f[p];
+    return (f[p] + neg_woff * nbr_sum_at<T, kInner>(v, z, y, x, lm)) *
+           inv_wc;
 }
 
 // Residual r = f - (wc v + woff S) at a fine point, 0 off the interior
@@ -221,6 +229,241 @@ __device__ __forceinline__ T prolong_point(const T* __restrict__ c, int zf,
 inline dim3 grid_for(int lm) {
     return dim3((unsigned int)((lm + kBx - 1) / kBx),
                 (unsigned int)((lm + kBy - 1) / kBy), (unsigned int)lm);
+}
+
+// ---------------------------------------------------------------------
+// The z-marching kernels K1 and K4: a block owns a column tile of
+// (y, x) points and marches up the box in z, holding a ring of planes
+// in shared memory that asynchronous copies fill ahead of the step that
+// reads them.  Rows of the unpadded box are lm elements long, so they are
+// not 16-byte aligned for odd lm and TMA's tiled copies (16-byte global
+// strides) do not apply: each element is one cp.async of its own size.
+// ---------------------------------------------------------------------
+
+// A march's tile and pipeline: TY x TX columns a block, THREADS threads,
+// DEPTH planes of copies in flight ahead of the step that reads them, and
+// at least MINB blocks an SM (__launch_bounds__: a register cap).
+template <int TY, int TX, int THREADS, int DEPTH, int MINB = 1>
+struct ZShape {
+    static constexpr int ty = TY, tx = TX, threads = THREADS, depth = DEPTH,
+                         min_blocks = MINB;
+};
+
+// One element copied global -> shared (dst a shared-space address)
+// without passing through registers; with valid false the destination is
+// zero-filled and nothing is read.
+template <typename T>
+__device__ __forceinline__ void cp_async(unsigned dst, const T* src,
+                                         bool valid) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst),
+                 "l"(src), "n"(sizeof(T)), "r"(valid ? (int)sizeof(T) : 0)
+                 : "memory");
+}
+
+// The shared-space address of p, for cp_async.
+__device__ __forceinline__ unsigned shared_address(const void* p) {
+    return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// A thread's share of copying an H x W region of every plane: rows y0 ..
+// y0+H-1, columns x0 .. x0+W-1 (global coordinates, possibly off the
+// box), element i = tid + k THREADS to slot element i.  The in-plane byte
+// offsets (0 off the box) and a mask of the elements on the box are
+// worked out once, so a plane costs little more than a cp.async an
+// element.  In-plane byte offsets are 32-bit (lm^2 sizeof(T) < 2^32: lm
+// <= 23170, beyond any box a card holds); plane bases are 64-bit.
+template <typename T, int H, int W, int THREADS>
+struct PlaneCopy {
+    static constexpr int n = (H * W + THREADS - 1) / THREADS;
+    static_assert(n <= 32, "one mask bit an element");
+    unsigned off[n];
+    unsigned on;           // bit k: element k lies on the box
+    __device__ __forceinline__ void init(int y0, int x0, int lm, int tid) {
+        on = 0;
+#pragma unroll
+        for (int k = 0; k < n; ++k) {
+            const int i = tid + k * THREADS;
+            const int y = y0 + i / W, x = x0 + i % W;
+            const bool in = i < H * W && y >= 0 && y < lm && x >= 0 && x < lm;
+            off[k] = in ? (unsigned)(y * lm + x) * (unsigned)sizeof(T) : 0u;
+            on |= in ? 1u << k : 0u;
+        }
+    }
+    // Start copying plane z of the lm^3 box g to the slot at shared
+    // address s; points off the box arrive as 0.  A plane off the box is
+    // not copied (no reader touches it).
+    __device__ __forceinline__ void issue(unsigned s, const T* g, int z,
+                                          int lm, int tid) const {
+        if (z < 0 || z >= lm) return;
+        const char* plane =
+            reinterpret_cast<const char*>(g + (long long)z * lm * lm);
+        const unsigned d = s + tid * (unsigned)sizeof(T);
+#pragma unroll
+        for (int k = 0; k < n; ++k)
+            if (k < n - 1 || tid < H * W - (n - 1) * THREADS)
+                cp_async(d + k * THREADS * (unsigned)sizeof(T),
+                         reinterpret_cast<const T*>(plane + off[k]),
+                         (on >> k) & 1u);
+    }
+};
+
+// The parity-split layout of a plane slot: the points of an H x W region
+// whose first column is even, each parity of x + y in its own row-major
+// H x W/2 array of compact columns j = c / 2, the odd array `half`
+// elements after the even one.  The six neighbours of a point lie in the
+// other parity's array of its plane and in its own parity's arrays of
+// the planes above and below, so the red points of plane z, (x + y) % 2
+// = z % 2, are all reached through per-plane array offsets, and a warp
+// on consecutive points of one colour reads consecutive words.  half = 16
+// (mod 32), so a warp reading 32 consecutive points of a row, alternating
+// parities, hits 32 banks.
+template <int H, int W>
+struct Split {
+    static_assert(W % 2 == 0, "whole column pairs");
+    static constexpr int hw = W / 2;
+    static constexpr int half = H * hw + ((16 - H * hw % 32) + 32) % 32;
+    static constexpr int size = 2 * half;
+};
+
+// A thread's share of copying an H x W region (rows y0 .., columns x0 ..,
+// x0 even) of every plane into the parity-split layout, as PlaneCopy: the
+// destination byte offsets are worked out once too.
+template <typename T, int H, int W, int THREADS>
+struct SplitCopy {
+    static constexpr int n = (H * W + THREADS - 1) / THREADS;
+    static_assert(n <= 32, "one mask bit an element");
+    unsigned off[n], dst[n];
+    unsigned on;
+    __device__ __forceinline__ void init(int y0, int x0, int lm, int tid) {
+        on = 0;
+#pragma unroll
+        for (int k = 0; k < n; ++k) {
+            const int i = tid + k * THREADS;
+            const int r = i / W, c = i % W;
+            const int y = y0 + r, x = x0 + c;
+            const bool in = i < H * W && y >= 0 && y < lm && x >= 0 && x < lm;
+            off[k] = in ? (unsigned)(y * lm + x) * (unsigned)sizeof(T) : 0u;
+            on |= in ? 1u << k : 0u;
+            dst[k] = (unsigned)(((x + y) & 1 ? Split<H, W>::half : 0) +
+                                r * Split<H, W>::hw + (c >> 1)) *
+                     (unsigned)sizeof(T);
+        }
+    }
+    __device__ __forceinline__ void issue(unsigned s, const T* g, int z,
+                                          int lm, int tid) const {
+        if (z < 0 || z >= lm) return;
+        const char* plane =
+            reinterpret_cast<const char*>(g + (long long)z * lm * lm);
+#pragma unroll
+        for (int k = 0; k < n; ++k)
+            if (k < n - 1 || tid < H * W - (n - 1) * THREADS)
+                cp_async(s + dst[k], reinterpret_cast<const T*>(plane + off[k]),
+                         (on >> k) & 1u);
+    }
+};
+
+// The six neighbours of a point at compact index p of the parity-split
+// layout: in-plane from the other parity's array `mid`, above and below
+// from the point's own parity's arrays `lo` and `hi` of planes z-1 and
+// z+1 (row stride hw).  The point's column is 2j + s, so x-1 sits at
+// j + s - 1 and x+1 at j + s of `mid`.
+template <typename T>
+struct SplitAt {
+    const T* lo;
+    const T* mid;
+    const T* hi;
+    int p, hw, s;
+    __device__ __forceinline__ T operator()(int dz, int dy, int dx) const {
+        const T* b = dz < 0 ? lo : (dz > 0 ? hi : mid);
+        return b[p + dy * hw + (dx < 0 ? s - 1 : (dx > 0 ? s : 0))];
+    }
+};
+
+// Point p of plane z, read from three shared-memory planes z-1, z, z+1 of
+// row stride sy (a march's ring holds them in no fixed order).
+template <typename T>
+struct Planes3 {
+    const T* lo;
+    const T* mid;
+    const T* hi;
+    int p, sy;
+    __device__ __forceinline__ T operator()(int dz, int dy, int dx) const {
+        const T* s = dz < 0 ? lo : (dz > 0 ? hi : mid);
+        return s[p + dy * sy + dx];
+    }
+};
+
+// Devices a launch set-up is cached for.
+constexpr int kMaxDevices = 64;
+
+// Blocks of `kernel` (`threads` a block, `bytes` of dynamic shared
+// memory) that fill every SM of the current device once, set up once a
+// device: the shared memory is allowed for `kernel` and `twin` (a second
+// kernel of the same resources, or `kernel` again), then the occupancy is
+// read and kept in cache[device].  Returns 0 with err set if the device
+// refuses.
+template <typename K>
+inline int device_wave(int (&cache)[kMaxDevices], K kernel, K twin,
+                       int threads, int bytes, cudaError_t* err) {
+    int dev = 0;
+    *err = cudaGetDevice(&dev);
+    if (*err != cudaSuccess) return 0;
+    if (dev < 0 || dev >= kMaxDevices) {
+        *err = cudaErrorInvalidDevice;
+        return 0;
+    }
+    if (cache[dev] > 0) return cache[dev];
+    const K both[2] = {kernel, twin};
+    for (int i = 0; i < 2; ++i) {
+        *err = cudaFuncSetAttribute(
+            both[i], cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        if (*err != cudaSuccess) return 0;
+    }
+    int sms = 0, per_sm = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                  bytes);
+    cache[dev] = (sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
+    return cache[dev];
+}
+
+// Fewest planes a z segment holds.
+constexpr int kMinSegment = 8;
+
+// How a march cuts `planes` z planes into segments, one block per column
+// tile and segment: len planes a segment, count segments.
+struct ZSplit {
+    int len, count;
+};
+
+// The split with the fewest (waves of `wave` blocks) x (segment length +
+// the `halo` planes a segment re-reads): more segments fill the card,
+// each pays its halo.
+inline ZSplit z_split(int planes, int tiles, int wave, int halo) {
+    const int most = planes / kMinSegment > 1 ? planes / kMinSegment : 1;
+    ZSplit best{planes, 1};
+    long long best_cost = -1;
+    for (int n = 1; n <= most; ++n) {
+        const int len = (planes + n - 1) / n;
+        const int count = (planes + len - 1) / len;
+        const long long waves = ((long long)tiles * count + wave - 1) / wave;
+        const long long cost = waves * (len + halo);
+        if (best_cost < 0 || cost < best_cost) {
+            best_cost = cost;
+            best = ZSplit{len, count};
+        }
+    }
+    return best;
 }
 
 }  // namespace mg3d

@@ -8,16 +8,22 @@ order, which the CPU path and the on-card comparison use.  Arrays are the
 logical lm^3 node box, contiguous, f32 (f64 is built too).
 
 K1 rb_sweep replaces multigrid_dolfinx_tpu/ops/pallas/stencil3d.py
-  rb_sweep_fused.  Bound on the H100: memory, about 8 bytes read and 4
-  written per point and colour in f32 (v, f, out), neighbours from
-  L1/L2.  Design: one launch per colour, one thread per point; the red
-  launch writes every point of `out`, the black launch updates `out` in
-  place.  The TPU kernel's single pass over both colours needs a 2-slab
-  halo of recomputed red values; fusing the colours that way in shared
-  memory is later work.
-rb_half_sweep replaces stencil3d.py rb_half_sweep: one colour of K1, the
-  kernel K1 launches twice (rb_color_kernel), out of place.  Bound:
-  memory, v and f read and out written once in f32.
+  rb_sweep_fused: both colours of one red-black sweep in one pass.  Bound
+  on the H100: memory, v and f read and out written once (12 bytes a
+  point in f32).  Design: one launch a sweep; a block owns a column tile
+  of (y, x) points and marches up a z segment, with a ring of v and f
+  planes in shared memory filled by asynchronous copies ahead of the
+  step, each plane split by the parity of x + y so that one colour's
+  points and their neighbours are contiguous.  Step z updates red at
+  plane z on the tile grown by 1 in the ring, then black at plane z-2
+  from red planes already updated, and writes plane z-3: one barrier a
+  step.  Bitwise the two half sweeps (red-black GS is order-free within a
+  colour; the same per-point helper, no multiply-add contraction).  Plane
+  bases are 64-bit: every lm a card can hold.
+rb_half_sweep replaces stencil3d.py rb_half_sweep: one colour of K1 as
+  its own entry (rb_color_kernel, one thread per point), out of place.
+  Bound: memory, v and f read and out written once in f32.  No solver
+  path runs it: K1 does both colours in one launch.
 K2 restrict_residual_pt replaces stencil3d.py restrict_residual_pt.
   Bound: memory, 8 bytes per fine point read (v, f) and 4 per coarse
   point written; the residual is never stored.  Design: one thread per
@@ -55,9 +61,8 @@ import torch.nn.functional as F
 from . import build
 from ..operators import box_interior_mask
 
-#: Calls of each wrapper that launched its kernel(s).  rb_sweep is two
-#: launches of the half-sweep kernel per call, so it also adds 2 to
-#: rb_half_sweep.  Reset with ops.cuda.reset_launch_counts().
+#: Calls of each wrapper that launched its kernel.  Reset with
+#: ops.cuda.reset_launch_counts().
 LAUNCHES = {"rb_sweep": 0, "rb_half_sweep": 0, "restrict_residual_pt": 0,
             "prolong_linear": 0, "prolong_linear_add": 0,
             "residual": 0, "jacobi_sweep": 0, "restrict_pt": 0}
@@ -108,9 +113,8 @@ def check_lm(lm: int) -> None:
 
 def rb_sweep(v: torch.Tensor, f: torch.Tensor, lm: int, wc: float,
              woff: float) -> torch.Tensor:
-    """One full red-black GS sweep of the const-7 operator: the kernel is
-    launched once per colour, red ((x+y+z) even) writing every point of a
-    new array, then black updating that array in place."""
+    """One full red-black GS sweep of the const-7 operator into a new
+    array, red ((x+y+z) even) then black, in one launch."""
     shape = (lm,) * 3
     check_tensor(v, "v", shape)
     check_tensor(f, "f", shape, v.dtype)
@@ -121,7 +125,6 @@ def rb_sweep(v: torch.Tensor, f: torch.Tensor, lm: int, wc: float,
                  1.0 / wc, -woff, stream(v))
     build.check(err, "rb_sweep")
     LAUNCHES["rb_sweep"] += 1
-    LAUNCHES["rb_half_sweep"] += 2
     return out
 
 

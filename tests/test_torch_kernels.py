@@ -1,6 +1,7 @@
 """The PyTorch port's kernels K1-K4 (plain versions) against the JAX package;
-K38's CPU dispatch and its wrapper's refusal of CPU tensors (its twin
-meets the JAX package in tests/test_torch_mass_quad.py).
+K1 and K4's z-marching plane schedules replayed on the CPU; K38's CPU
+dispatch and its wrapper's refusal of CPU tensors (its twin meets the JAX
+package in tests/test_torch_mass_quad.py).
 
 Each CUDA kernel of `multigrid_dolfinx_tpu_torch/ops/cuda` has a plain
 PyTorch version that the CPU path runs and that the card compares the
@@ -141,6 +142,60 @@ def test_residual_tet_quad_matches_jax_mass_norm(jhier, diagonal):
         torch.from_numpy(v), torch.from_numpy(f), lm, wc, woff, diagonal)
     assert port.dtype == torch.float64
     np.testing.assert_allclose(float(port), float(rn) ** 2, rtol=RTOL)
+
+
+@pytest.mark.parametrize("lm", [9, 10])
+def test_zmarch_plane_schedules_match_plain(lm):
+    """K1 and K4's z-marching plane schedules, replayed on torch tensors in
+    f64, give their plain versions.  K1: each z segment [za, zb) works on
+    its own copy of v; step z updates red at plane z in place (za-1 <= z
+    <= zb), then black at plane z-2 in place (za <= z-2 < zb), then stores
+    plane z-3: bitwise rb_sweep_ref for every segment length.  K4: the
+    cells summed plane pair by plane pair, within 1e-12 of
+    residual_tet_quad_ref."""
+    v, f = (torch.from_numpy(a) for a in _inputs(70 + lm, (lm,) * 3,
+                                                  (lm,) * 3))
+    wc, woff = 0.75, -0.125
+    want = stencil3d.rb_sweep_ref(v, f, lm, wc, woff)
+    for seg in (1, 3, lm):
+        out = torch.full_like(v, float("nan"))
+        for za in range(0, lm, seg):
+            zb = min(za + seg, lm)
+            ring = v.clone()
+            for z in range(za - 1, zb + 3):
+                if 0 <= z <= min(zb, lm - 1):
+                    ring[z] = stencil3d.rb_half_sweep_ref(
+                        ring, f, lm, wc, woff, 0)[z]
+                if za <= z - 2 < zb:
+                    ring[z - 2] = stencil3d.rb_half_sweep_ref(
+                        ring, f, lm, wc, woff, 1)[z - 2]
+                if za <= z - 3 < zb:
+                    out[z - 3] = ring[z - 3]
+        assert torch.equal(out, want), seg
+
+    r = stencil3d.residual_ref(v, f, lm, wc, woff)
+    nc = lm - 1
+    for diagonal in ("right", "left"):
+        tets, counts = stencil3d_norm.tet_tables(diagonal)
+        q = torch.zeros((), dtype=torch.float64)
+        for c in range(nc):
+            pair = (r[c], r[c + 1])
+
+            def corner(d):
+                return pair[d[0]][d[1]:d[1] + nc, d[2]:d[2] + nc]
+
+            acc = torch.zeros((nc, nc), dtype=v.dtype)
+            for d, cnt in counts.items():
+                acc = acc + float(cnt) * corner(d) * corner(d)
+            for tet in tets:
+                t = ((corner(tet[0]) + corner(tet[1])) + corner(tet[2])) + \
+                    corner(tet[3])
+                acc = acc + t * t
+            q = q + torch.sum(acc, dtype=torch.float64)
+        ref = stencil3d_norm.residual_tet_quad_ref(v, f, lm, wc, woff,
+                                                   diagonal)
+        np.testing.assert_allclose(float(q) * (1.0 / nc) ** 3 / 120.0,
+                                   float(ref), rtol=1e-12)
 
 
 def test_plain_transfers_match_jax():
