@@ -10,11 +10,14 @@ Phases (each prints one line; any failure exits nonzero with no result):
   2. build of the CUDA kernels from multigrid_dolfinx_tpu_torch/csrc;
   3. each 3D kernel (K1-K4) against its plain PyTorch version on the card,
      on inputs from numpy's default_rng, in f32 and f64 at lm in {9, 17,
-     65, 129, 257, 513} and at 33 and 100 (ragged tiles and z segments):
-     K1 bitwise, K4 within TOL_NORM with two calls bitwise equal and
-     within 1e-6 relative of K38; kernel / plain times at the main path's
-     513^3 / 257^3 shapes; and, in turns at 513^3 f32, K1 beside the two
-     half sweeps it replaces and K4 beside K38 (each must be faster);
+     65, 129, 257, 513} and at 33, 99, 100 and 201 (ragged tiles and z
+     segments; K2 and K3 at the odd lm): K1-K3 bitwise, K4 within
+     TOL_NORM with two calls bitwise equal and within 1e-6 relative of
+     K38; kernel / plain times at the main path's 513^3 / 257^3 shapes;
+     and, in turns at 513^3 f32, K1 beside the two half sweeps it
+     replaces, K2 beside the chain K10 -> K18 (the same function, held
+     bitwise equal), K3 with v beside F.interpolate + v, K3 without v
+     beside F.interpolate, and K4 beside K38 (each must be faster);
   4. the 3D slice at 64^3 f32 on the card against the plain path on the
      CPU;
   5. the 3D main path: 512^3 f32 lean FMG + V(2,2) solve to rtol 1e-8,
@@ -211,8 +214,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SEED = 0
 KERNEL_LMS = (9, 17, 65, 129, 257, 513)
-# K1 and K4 also at sizes whose column tiles and z segments are ragged
-KERNEL_LMS_RAGGED = (33, 100)
+# K1-K4 also at sizes whose column tiles and z segments are ragged (K2
+# and K3 at the odd ones)
+KERNEL_LMS_RAGGED = (33, 99, 100, 201)
 TIMED_LM = 513            # the main path's finest level (512^3 elements)
 KERNEL_LMS_2D = (9, 17, 65, 257, 1025, 2049, 8193)
 TIMED_LM_2D = 8193        # the 2D production finest level (8192^2 elements)
@@ -408,9 +412,9 @@ ARRAYS = {"rb_sweep": (3, 0), "restrict_residual_pt": (2, 1),
           "rb_sweep2": (3, 0), "rb_residual_restrict": (3, 1),
           "prolong_correct_rb": (3, 1), "residual_mass_quad": (2, 0)}
 RTOL_64 = {"C": 1e-7, "G1": 1e-6}     # above the f32 floor at 64^3
-# K2, K3 and K5-K9 must agree to 1e-6 of the reference's magnitude (bitwise
-# is expected: same association order, kernels built with --fmad=false;
-# K1 is held to exactly 0); K4 and K38 to 1e-5 relative (their f64 sums
+# K5-K9 must agree to 1e-6 of the reference's magnitude (bitwise is
+# expected: same association order, kernels built with --fmad=false;
+# K1-K3 are held to exactly 0); K4 and K38 to 1e-5 relative (their f64 sums
 # run in another order than torch.sum; K38 against K4, two associations
 # of the same form), and K4 to 1e-6 relative of K38 in phase 3.
 TOL_STENCIL = 1e-6
@@ -486,12 +490,13 @@ def level_weights(mg, lm):
 
 
 def phase_kernels(torch, np, mg, records):
-    """K1-K4 against their plain versions on the card: K1 bitwise, K2 and
-    K3 within TOL_STENCIL, K4 within TOL_NORM, two K4 calls bitwise equal
-    and K4 within TOL_K4_K38 of K38 on the same inputs, in f32 and f64 at
-    lm in KERNEL_LMS and KERNEL_LMS_RAGGED; then kernel / plain times at
-    the main path's shapes, and, in turns, K1 beside the two half sweeps
-    it replaces and K4 beside K38."""
+    """K1-K4 against their plain versions on the card: K1-K3 bitwise, K4
+    within TOL_NORM, two K4 calls bitwise equal and K4 within TOL_K4_K38
+    of K38 on the same inputs, in f32 and f64 at lm in KERNEL_LMS and
+    KERNEL_LMS_RAGGED; then kernel / plain times at the main path's
+    shapes, and, in turns, K1 beside the two half sweeps it replaces, K2
+    beside K10 -> K18 (equal at 513^3), K3 beside F.interpolate (+ v)
+    and K4 beside K38."""
     from multigrid_dolfinx_tpu_torch.ops import cuda as kcuda
     from multigrid_dolfinx_tpu_torch.ops.cuda import build
     from multigrid_dolfinx_tpu_torch.ops.cuda import stencil3d as s3
@@ -526,11 +531,11 @@ def phase_kernels(torch, np, mg, records):
                     ("restrict_residual_pt",
                      s3.restrict_residual_pt(v, f, lm, lmc, wc, woff),
                      s3.restrict_residual_pt_ref(v, f, lm, lmc, wc, woff),
-                     TOL_STENCIL),
+                     0.0),
                     ("prolong_linear", s3.prolong_linear(c, lm),
-                     s3.prolong_linear_ref(c, lm), TOL_STENCIL),
+                     s3.prolong_linear_ref(c, lm), 0.0),
                     ("prolong_linear_add", s3.prolong_linear(c, lm, v),
-                     s3.prolong_linear_ref(c, lm, v), TOL_STENCIL),
+                     s3.prolong_linear_ref(c, lm, v), 0.0),
                 ]
             q4_again = sn.residual_tet_quad(v, f, lm, wc, woff, "right")
             offs, tables = mass_tables(torch, mg, lm, "right", dtype, dev)
@@ -581,13 +586,25 @@ def phase_kernels(torch, np, mg, records):
     shape = {"rb_sweep": (n, 0), "restrict_residual_pt": (n, nc),
              "prolong_linear_add": (n, nc), "prolong_linear": (n, nc),
              "residual_tet_quad": (n, 0)}
-    library = {"prolong_linear": lambda: F.interpolate(
-        c[None, None], size=(lm,) * 3, mode="trilinear", align_corners=True)}
+    def interp():
+        return F.interpolate(c[None, None], size=(lm,) * 3, mode="trilinear",
+                             align_corners=True)[0, 0]
+
+    library = {"prolong_linear": interp,
+               "prolong_linear_add": lambda: interp() + v}
     time_pairs(torch, pairs, err, records, f"phase 3 time at lm={lm}", shape,
                library)
 
     # in turns: K1 beside the two half sweeps it replaces (red out of
-    # place, black in place: its one-colour design), K4 beside K38
+    # place, black in place: its one-colour design), K2 beside K10 -> K18
+    # (the same function: residual, then P^T of the residual), K3 beside
+    # F.interpolate (+ v), K4 beside K38
+    def chain():
+        return s3.restrict_pt(s3.residual(v, f, lm, wc, woff), lm, lmc)
+
+    if not torch.equal(pairs["restrict_residual_pt"][0](), chain()):
+        raise AssertionError(f"restrict_residual_pt at lm={lm}: not equal "
+                             "to K10 -> K18")
     lib = build.library()
     halves_out = torch.empty_like(v)
     stream = torch.cuda.current_stream().cuda_stream
@@ -601,6 +618,13 @@ def phase_kernels(torch, np, mg, records):
     offs, tables = mass_tables(torch, mg, lm, "right", torch.float32, dev)
     turns = {
         "rb_sweep": (pairs["rb_sweep"][0], halves, "two half sweeps"),
+        "restrict_residual_pt": (pairs["restrict_residual_pt"][0], chain,
+                                 "K10 -> K18"),
+        "prolong_linear_add": (pairs["prolong_linear_add"][0],
+                               library["prolong_linear_add"],
+                               "F.interpolate + v"),
+        "prolong_linear": (pairs["prolong_linear"][0], interp,
+                           "F.interpolate"),
         "residual_tet_quad": (
             pairs["residual_tet_quad"][0],
             lambda: sn.residual_mass_quad(v, f, tables, offs, lm, wc, woff),
@@ -610,8 +634,8 @@ def phase_kernels(torch, np, mg, records):
     for name, (kern, other, label) in turns.items():
         o1, k1, k2, o2 = (min(time_ms(torch, fn), time_ms(torch, fn))
                           for fn in (other, kern, kern, other))
-        beside[name] = {"ms": min(k1, k2), label.replace(" ", "_") + "_ms":
-                        min(o1, o2)}
+        beside[name] = {"ms": min(k1, k2), "beside": label,
+                        "beside_ms": min(o1, o2)}
         print(f"phase 3 in turns at lm={lm} f32 {name}: kernel {k1:.4f}/"
               f"{k2:.4f} ms, {label} {o1:.4f}/{o2:.4f} ms")
         if not max(k1, k2) < min(o1, o2):
@@ -780,8 +804,8 @@ def phase_main(torch, np, mg, card):
 # kernel names (substrings of the CUDA symbols) -> the port's labels
 KERNEL_LABELS = (("rb_zmarch_kernel", "K1 rb_sweep"),
                  ("rb_color_kernel", "rb_half_sweep"),
-                 ("restrict_residual_pt_kernel", "K2 restrict_residual_pt"),
-                 ("prolong_linear_kernel", "K3 prolong_linear"),
+                 ("restrict_zmarch_kernel", "K2 restrict_residual_pt"),
+                 ("prolong_zmarch_kernel", "K3 prolong_linear"),
                  ("tet_zmarch_kernel", "K4 residual_tet_quad"),
                  ("sum_partials_kernel", "K4/K38 partial sum"),
                  ("tail_down", "K13 tail_down"), ("tail_up", "K14 tail_up"))

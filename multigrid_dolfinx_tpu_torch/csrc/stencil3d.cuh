@@ -33,8 +33,8 @@ __device__ __forceinline__ bool interior(int z, int y, int x, int lm) {
 // memory (sz = lm^2, sy = lm) it reads the box; with v a window in shared
 // memory (its own strides) it reads the window, so the cycle kernels of
 // stencil3d_cycle.cu run each point through the same arithmetic as K1-K3.
-// I is the index type: long long for K1-K3, int for K10-K12 and the
-// shared-memory windows.
+// I is the index type: long long on a box in global memory, int for
+// K10-K12 and the shared-memory windows and rings.
 template <typename T, typename I>
 struct Flat {
     const T* v;
@@ -88,15 +88,17 @@ __device__ __forceinline__ T rb_candidate(const At& v,
 }
 
 // Residual r = f - (wc v + woff S) at a fine point, 0 off the interior
-// (the 'pt' correction-equation masking); v read through `v`, f at its
-// global index p.
-template <typename T, typename At, typename I>
+// (the 'pt' correction-equation masking); v read through `v`, f at index
+// p of `f`.  kInner: the caller knows the point and its six neighbours are
+// interior.
+template <typename T, bool kInner = false, typename At, typename I>
 __device__ __forceinline__ T masked_residual_at(const At& v,
                                                 const T* __restrict__ f,
                                                 I p, int z, int y, int x,
                                                 int lm, T wc, T woff) {
-    if (!interior(z, y, x, lm)) return T(0);
-    const T av = wc * v(0, 0, 0) + woff * nbr_sum_at<T>(v, z, y, x, lm);
+    if (!kInner && !interior(z, y, x, lm)) return T(0);
+    const T av =
+        wc * v(0, 0, 0) + woff * nbr_sum_at<T, kInner>(v, z, y, x, lm);
     return f[p] - av;
 }
 
@@ -232,12 +234,12 @@ inline dim3 grid_for(int lm) {
 }
 
 // ---------------------------------------------------------------------
-// The z-marching kernels K1 and K4: a block owns a column tile of
-// (y, x) points and marches up the box in z, holding a ring of planes
-// in shared memory that asynchronous copies fill ahead of the step that
-// reads them.  Rows of the unpadded box are lm elements long, so they are
-// not 16-byte aligned for odd lm and TMA's tiled copies (16-byte global
-// strides) do not apply: each element is one cp.async of its own size.
+// The z-marching kernels K1-K4: a block owns a column tile of (y, x)
+// points and marches up the box in z, holding a ring of planes in shared
+// memory that asynchronous copies fill ahead of the step that reads them.
+// Rows of the unpadded box are lm elements long, so they are not 16-byte
+// aligned for odd lm and TMA's tiled copies (16-byte global strides) do
+// not apply: each element is one cp.async of its own size.
 // ---------------------------------------------------------------------
 
 // A march's tile and pipeline: TY x TX columns a block, THREADS threads,
@@ -273,6 +275,12 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
     asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The smallest power of two >= n: a ring's slot count, so that a plane's
+// slot is its index masked (planes below 0 included).
+constexpr int pow2_ceil(int n) {
+    return n <= 1 ? 1 : 2 * pow2_ceil((n + 1) / 2);
 }
 
 // A thread's share of copying an H x W region of every plane: rows y0 ..

@@ -26,14 +26,25 @@ rb_half_sweep replaces stencil3d.py rb_half_sweep: one colour of K1 as
   path runs it: K1 does both colours in one launch.
 K2 restrict_residual_pt replaces stencil3d.py restrict_residual_pt.
   Bound: memory, 8 bytes per fine point read (v, f) and 4 per coarse
-  point written; the residual is never stored.  Design: one thread per
-  coarse point recomputes the 27 masked fine residuals around 2I from v
-  and f (neighbouring threads share them through L1/L2).
+  point written; the residual is never stored.  Design: a z-march, as
+  K1: a block owns a tile of coarse columns and marches up a segment of
+  coarse planes, with rings of v and f planes on the tile's fine
+  footprint in shared memory filled by asynchronous copies ahead of the
+  step.  Each thread forms the masked residual of its fine columns once
+  a fine plane, keeps the plane below in registers, and combines the
+  three planes in z into shared memory; each coarse point then combines
+  in y at its rows and in x (a shuffle passes the shared column), the
+  association of the plain version, so the result is bitwise it.
 K3 prolong_linear replaces stencil3d.py prolong_linear (v=None) and
   prolong_linear_add (v given: out = v + P(c)).  Bound: memory, 4 bytes
   per fine point written plus 4 read for v; the coarse array is 1/8 of
-  that and stays in L2.  Design: one thread per fine point, interpolated
-  in x, then y, then z.
+  that.  Design: a z-march over coarse planes: a block owns a tile of
+  fine columns with a ring of coarse footprint planes in shared memory;
+  each thread keeps the in-plane interpolation (x, then y) of the coarse
+  plane below at its columns in registers, forms the next one once, and
+  writes the even fine plane and the odd one (their mean) in z, plus v
+  read in coalesced rows; a column's x parity picks its midpoint by a
+  select, so no warp diverges.
 K10 residual replaces stencil3d.py residual: r = f - (wc v + woff S(v~))
   inside, f - v on the boundary.  Bound: memory, 8 bytes read (v, f) and
   4 written per point in f32.  Design: one thread per point in 32 x 8
@@ -48,8 +59,8 @@ K11 jacobi_sweep replaces stencil3d.py jacobi_sweep: (1-w) v + w cand,
 K18 restrict_pt replaces stencil3d.py restrict_pt: the two-step masked
   P^T of a given fine residual (the planes path's restriction).  Bound:
   memory, r read once and the coarse array written once.  Design: K2's
-  arithmetic with r read instead of recomputed, one thread per coarse
-  point.
+  arithmetic (mg3d::restrict_combine) with r read instead of formed, one
+  thread per coarse point.
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
 """The PyTorch port's kernels K1-K4 (plain versions) against the JAX package;
-K1 and K4's z-marching plane schedules replayed on the CPU; K38's CPU
+K1-K4's z-marching plane schedules replayed on the CPU; K38's CPU
 dispatch and its wrapper's refusal of CPU tensors (its twin meets the JAX
 package in tests/test_torch_mass_quad.py).
 
@@ -196,6 +196,92 @@ def test_zmarch_plane_schedules_match_plain(lm):
                                                    diagonal)
         np.testing.assert_allclose(float(q) * (1.0 / nc) ** 3 / 120.0,
                                    float(ref), rtol=1e-12)
+
+
+def _plane_residual(vt, f, z, lm, wc, woff):
+    """The masked residual on fine plane z from the interior-masked v
+    (vt): f - (wc v + woff S), summed in nbr_sum_ref's order, 0 off the
+    interior."""
+    if not 1 <= z <= lm - 2:
+        return torch.zeros((lm, lm), dtype=vt.dtype)
+    p = torch.nn.functional.pad(vt[z], (1, 1, 1, 1))
+    c = slice(1, -1)
+    nbr = ((((vt[z - 1] + vt[z + 1]) + p[:-2, c]) + p[2:, c]) + p[c, :-2]) \
+        + p[c, 2:]
+    inner = torch.zeros((lm, lm), dtype=torch.bool)
+    inner[1:-1, 1:-1] = True
+    return torch.where(inner, f[z] - (wc * vt[z] + woff * nbr), 0.0)
+
+
+def _in_pairs(a, axis):
+    """(a[2i-1] + 2 a[2i]) + a[2i+1] along axis, zero beyond the ends."""
+    pad = [0, 0, 0, 0]
+    pad[2 * (1 - axis):2 * (1 - axis) + 2] = [1, 1]
+    return stencil3d.combine121(torch.nn.functional.pad(a, pad), axis)
+
+
+@pytest.mark.parametrize("lmf", [9, 17])
+def test_zmarch_transfer_schedules_match_plain(lmf):
+    """K2 and K3's z-marching schedules, replayed on torch tensors in f64
+    for z segments of 1, 3 and all coarse planes, give their plain
+    versions bitwise.  K2: a segment [za, zb) zeroes the coarse boundary
+    planes, forms r at fine plane 2za-1, then step zc forms r at fine
+    planes 2zc and 2zc+1 once, carries r[2zc+1] to the next step, forms
+    Rz = (r[2zc-1] + 2 r[2zc]) + r[2zc+1], combines it in y at the coarse
+    rows, then in x, times 0.125, the coarse boundary zeroed.  K3: a
+    segment [ka, kb) forms Pxy (x, then y) of coarse plane ka, then step
+    kz forms Pxy of plane kz+1 once and writes fine plane 2kz = Pxy[kz]
+    and 2kz+1 = 0.5 (Pxy[kz] + Pxy[kz+1]), each plus v when given; the
+    last fine plane is even."""
+    lmc = (lmf + 1) // 2
+    v, f, c = (torch.from_numpy(a) for a in _inputs(
+        80 + lmf, (lmf,) * 3, (lmf,) * 3, (lmc,) * 3))
+    wc, woff = 0.75, -0.125
+    vt = torch.where(
+        torch.from_numpy(np.pad(np.ones((lmf - 2,) * 3, bool), 1)), v, 0.0)
+    coarse_inner = torch.zeros((lmc, lmc), dtype=torch.bool)
+    coarse_inner[1:-1, 1:-1] = True
+    want_r = stencil3d.restrict_residual_pt_ref(v, f, lmf, lmc, wc, woff)
+    want_p = {add: stencil3d.prolong_linear_ref(c, lmf, v if add else None)
+              for add in (False, True)}
+
+    def pxy(kz):
+        return stencil3d.interp_axis(stencil3d.interp_axis(c[kz], 1), 0)
+
+    for seg in (1, 3, lmc):
+        out = torch.full((lmc,) * 3, float("nan"), dtype=v.dtype)
+        for za in range(0, lmc, seg):
+            zb = min(za + seg, lmc)
+            zs, ze = max(za, 1), min(zb, lmc - 1)
+            for zc in range(za, zb):
+                if not zs <= zc < ze:
+                    out[zc] = 0.0
+            if zs >= ze:
+                continue
+            rlo = _plane_residual(vt, f, 2 * zs - 1, lmf, wc, woff)
+            for zc in range(zs, ze):
+                r0 = _plane_residual(vt, f, 2 * zc, lmf, wc, woff)
+                r1 = _plane_residual(vt, f, 2 * zc + 1, lmf, wc, woff)
+                rz = (rlo + 2.0 * r0) + r1
+                rlo = r1
+                g = _in_pairs(_in_pairs(rz, 0), 1)
+                out[zc] = torch.where(coarse_inner, g * 0.125, 0.0)
+        assert torch.equal(out, want_r), seg
+
+        for add in (False, True):
+            out = torch.full((lmf,) * 3, float("nan"), dtype=v.dtype)
+            for ka in range(0, lmc, seg):
+                kb = min(ka + seg, lmc)
+                cur = pxy(ka)
+                for kz in range(ka, kb):
+                    planes = [(2 * kz, cur)]
+                    if kz + 1 < lmc:
+                        nxt = pxy(kz + 1)
+                        planes.append((2 * kz + 1, 0.5 * (cur + nxt)))
+                        cur = nxt
+                    for z, e in planes:
+                        out[z] = v[z] + e if add else e
+            assert torch.equal(out, want_p[add]), (seg, add)
 
 
 def test_plain_transfers_match_jax():
