@@ -1,0 +1,17 @@
+"""Work of one `ops.dispatch.planes2_residual(v, f, planes, offsets)` call
+(K22, the residual on stored planes: the K planes, v, f read, r
+written), from its argument shapes: each input read once and each output
+written once, whatever the kernel reads again; operations per point as
+counted from the kernel's arithmetic (the PERF.md kernel table's
+counts)."""
+
+GRID_ARRAYS = 3        # v, f and the result (or v twice)
+EXTRA_OPS = 1   # operations a point beyond a multiply and an add a plane
+
+
+def cost(args):
+    n = args[0].numel
+    planes = args[2]
+    k = planes.shape[0]
+    return {"bytes": (planes.numel + GRID_ARRAYS * n) * args[0].itemsize,
+            "flops": (2 * k + EXTRA_OPS) * n}
