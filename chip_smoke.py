@@ -184,7 +184,15 @@ Phases (each prints one line; any failure exits nonzero with no result):
      None, the StencilOperator default a carried-across JAX hierarchy may
      hold), so the check runs on K38: phase 5's cycle count, u bitwise
      phase 5's, res_hist within TOL_NORM of phase 5's, K38 launched once a
-     check and K4 never; the check timed on both masses.
+     check and K4 never; the check timed on both masses;
+ 33. K39 (coarse_band_solve, the coarsest level's Cholesky solve over the
+     factor's band) on the coarsest levels of the p1 path (9^3, w 81) and
+     the var path (25^3, w 651), f64 and f32 in and out: bitwise its
+     plain version on the card and on the CPU, two calls bitwise equal,
+     within TOL_BAND_LIBRARY of torch.cholesky_solve in f64; kernel /
+     plain / library times beside its byte bound at both levels; and
+     phase 16's 384^3 f32 solve held to 2 cycles with K39 launched once a
+     coarse solve and torch.cholesky_solve never called.
 Each main path (5, 7, 9, each run of 12, 16, 19, 22, 25, 28, 30 and 32) sets the
 launch counts to 0 just before it runs and reads them just after.  Each kernel's record
 carries its time, its plain version's, the time of one PyTorch call that
@@ -192,10 +200,11 @@ computes the same function where there is one (library_ms, else null;
 never called by the port) and its bound: the larger of the bytes it must
 move over 3.35 TB/s and its f32 operations over 67 TFLOP/s (H100 SXM).
 Before them a line gives each phase's wall seconds.  The second-to-last
-line is the kernels' JSON record (K1-K38 and the half sweep, each with the
+line is the kernels' JSON record (K1-K39 and the half sweep, each with the
 launches of the main path that runs it; phase 30's summed for K35-K37,
-phase 32's for K38; the half sweep's are phase 30's, 0: no main path
-runs it since K1 does both colours in one launch), the last line {"ok": true,
+phase 32's for K38, phase 16's for K39; the half sweep's are phase 30's,
+0: no main path runs it since K1 does both colours in one launch), the
+last line {"ok": true,
 "device": {...}}.  nvcc's report and the full record go to --out (default
 build/chip_smoke/, under the checkout).  Imports nothing of JAX.
 """
@@ -273,6 +282,8 @@ TPU_KERNELS = {
         "multigrid_dolfinx_tpu/ops/pallas/stencil3d_cycle.py:481",
     "residual_mass_quad":
         "multigrid_dolfinx_tpu/ops/pallas/stencil3d_norm.py:561",
+    # none: the JAX package leaves the coarse solve to XLA (cho_solve)
+    "coarse_band_solve": None,
 }
 KERNELS_3D = ("rb_sweep", "restrict_residual_pt", "prolong_linear_add",
               "prolong_linear", "residual_tet_quad")
@@ -288,10 +299,10 @@ PLANES_LMS = (9, 17, 65, 129, 257, 385)
 KERNELS_P2 = ("p2_residual", "p2_jacobi_sweep", "p2_mass_quad")
 P2_LMS = (9, 17, 33, 65, 129, 257, 513)
 TIMED_LM_P2 = 513         # the P2 finest lattice (256^3 elements)
-# the 65^3-lattice P2 solve, card vs CPU: the kernels are bitwise their
-# plain versions and K21 sums in a fixed order, so res_hist is expected
-# bitwise; held to one f32 ulp of relative room (the coarse solve is an f64
-# library solve, rounded to f32, in another order on each device)
+# the 65^3-lattice P2 solve, card vs CPU: the kernels, the coarse solve
+# K39 among them, are bitwise their plain versions and K21 sums in a fixed
+# order, so res_hist is expected bitwise; held to one f32 ulp of relative
+# room
 RTOL_P2_SMALL = 1.2e-7
 TIMED_LM_VAR = 385        # the 384^3 variable-kappa finest level
 KERNELS_PLANES2 = ("planes2_residual", "planes2_jacobi_sweep",
@@ -363,6 +374,7 @@ SOURCES = {
     **{k: "multigrid_dolfinx_tpu_torch/csrc/stencil3d_cycle.cu"
        for k in KERNELS_CYCLE[1:]},
     "residual_mass_quad": "multigrid_dolfinx_tpu_torch/csrc/stencil3d_norm.cu",
+    "coarse_band_solve": "multigrid_dolfinx_tpu_torch/csrc/coarse_band.cu",
 }
 # H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s and f32 FLOP/s
 # outside the tensor cores.
@@ -420,6 +432,9 @@ RTOL_64 = {"C": 1e-7, "G1": 1e-6}     # above the f32 floor at 64^3
 TOL_STENCIL = 1e-6
 TOL_NORM = 1e-5
 TOL_K4_K38 = 1e-6
+# K39 in f64 against torch.cholesky_solve on the dense factor (relative to
+# max|u|): the two sum in other orders, ~1e-15 apart at 25^3
+TOL_BAND_LIBRARY = 1e-13
 # what a later phase compares with: phase 5's 512^3 u (on the host)
 KEPT = {}
 
@@ -1728,12 +1743,23 @@ def run_var(torch, mg, dtype, label, hier=None, smoother="rbgs"):
             hmod.build_coarse_solver = build_coarse
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    res = mg.solve(hier, cyc)
-    torch.cuda.synchronize()
+    library, library_calls = torch.cholesky_solve, [0]
+
+    def counted(*a, **kw):
+        library_calls[0] += 1
+        return library(*a, **kw)
+
+    torch.cholesky_solve = counted
+    try:
+        res = mg.solve(hier, cyc)
+        torch.cuda.synchronize()
+    finally:
+        torch.cholesky_solve = library
     t2 = time.perf_counter()
     counts = kcuda.launch_counts()
     mid = hier.finest.n // 2
     run = {"build_s": t1 - t0, "coarse_factor_s": factor_s[0],
+           "cholesky_solve_calls": library_calls[0],
            "solve_s": t2 - t1, "cycles": res.num_cycles,
            "converged": res.converged,
            "res_hist": res.res_hist[:res.num_cycles].double().cpu()
@@ -1894,7 +1920,8 @@ def phase_var(torch, np, mg, card, records):
             f"u(1/2,1/2,1/2) vs f64 {d_op:.3e} (limit 1.2e-3)")
     del hier64, res64, u32
     torch.cuda.empty_cache()
-    launches = {k: counts[k] for k in KERNELS_PLANES if k in counts}
+    launches = {k: counts[k] for k in KERNELS_PLANES + ("coarse_band_solve",)
+                if k in counts}
     launches["planes3_jacobi_sweep"] = counts_j["planes3_jacobi_sweep"]
     for k, e in err.items():
         records[k]["max_abs_err"] = max(records[k]["max_abs_err"], e)
@@ -3803,6 +3830,107 @@ def phase_mass_quad_path(torch, np, mg, card, main):
                     "launches": launches}
 
 
+def band_bytes(band, itemsize):
+    """Bytes K39 must move a solve: each packed diagonal block once (its
+    lower triangle forward, its upper one back), the nonzero triangles of
+    the blocks below them (w (w + 1) / 2 values each, twice), f and u."""
+    return (8 * (band.nb * band.bs ** 2 + (band.nb - 1) * band.w
+                 * (band.w + 1)) + 2 * itemsize * band.n)
+
+
+def phase_coarse_band(torch, np, mg, records, var):
+    """K39 on the coarsest levels of the p1 path (9^3) and the var path
+    (25^3), built on the card as the solvers build them: bitwise its
+    plain version run on the card and on the CPU, two calls bitwise
+    equal, f64 within TOL_BAND_LIBRARY of torch.cholesky_solve, in f64
+    and f32; kernel / plain / library times at both levels (the record:
+    the var level's); then phase 16's 384^3 f32 solve: 2 cycles, one K39
+    launch a coarse solve and no torch.cholesky_solve."""
+    from multigrid_dolfinx_tpu_torch.ops.cuda import coarse_band as cb
+
+    rng = np.random.default_rng(SEED)
+    dev = torch.device("cuda")
+    cyc = cycle_spec(mg, 1e-6)
+    cfgs = (("p1 9^3", mg.models.poisson3d(
+                finest_level=1, coarsest_level=0, coarsest_elements=8,
+                dtype="float32", cycle=cyc), mg.build_lean_hierarchy),
+            ("var 25^3", mg.models.variable_coefficient_3d(
+                var_kappa, finest_level=1, coarsest_level=0,
+                coarsest_elements=24, dtype="float32", cycle=cyc),
+             mg.build_var_hierarchy))
+    err = {"coarse_band_solve": 0.0}
+    out = {}
+    for label, cfg, build_fn in cfgs:
+        solver = build_fn(cfg).coarse
+        band = solver.band
+        if solver.factor.is_cuda or not band.d.is_cuda:
+            raise AssertionError(f"{label}: the dense factor is on the card "
+                                 "or the band is not")
+        host = dataclasses.replace(band, d=band.d.cpu(), c=band.c.cpu())
+        dense = solver.factor.to(dev)
+        f64 = torch.from_numpy(rng.standard_normal(band.n)).to(dev)
+        parts = []
+        for dtype in (torch.float64, torch.float32):
+            f = f64.to(dtype)
+            u = cb.coarse_band_solve(f, band)
+            again = cb.coarse_band_solve(f, band)
+            plain = cb.coarse_band_solve_ref(f, band)
+            cpu = cb.coarse_band_solve_ref(f.cpu(), host)
+            lib = torch.cholesky_solve(f.double().reshape(-1, 1), dense,
+                                       upper=False).reshape(-1)
+            torch.cuda.synchronize()
+            where = f"{label} {str(dtype)[6:]}"
+            if u.dtype != dtype or not torch.equal(u, again):
+                raise AssertionError(f"coarse_band_solve at {where}: two "
+                                     "calls differ")
+            check_close("coarse_band_solve", u, plain, 0.0, err, parts, where)
+            if not torch.equal(u.cpu(), cpu):
+                raise AssertionError(f"coarse_band_solve at {where}: not "
+                                     "bitwise its plain version on the CPU")
+            rel = float((u.double() - lib).abs().max() / lib.abs().max())
+            parts.append(f"vs cholesky_solve {rel:.3e}")
+            if dtype == torch.float64 and not rel <= TOL_BAND_LIBRARY:
+                raise AssertionError(f"coarse_band_solve at {where}: {rel:.3e} "
+                                     "relative from torch.cholesky_solve")
+        print(f"phase 33 {label} (n {band.n}, w {band.w}, {band.nb} blocks "
+              f"of {band.bs}): max|kernel-plain| " + " ".join(parts)
+              + "; two calls and the CPU's plain version bitwise equal")
+        f = f64.float()
+        pairs = {"coarse_band_solve": (
+            lambda: cb.coarse_band_solve(f, band),
+            lambda: cb.coarse_band_solve_ref(f, band))}
+        # the library solve as the port called it before K39
+        library = {"coarse_band_solve": lambda: torch.cholesky_solve(
+            f.reshape(-1, 1).to(torch.float64), dense, upper=False).to(
+                torch.float32)}
+        bound_ms = band_bytes(band, 4) / PEAK_BYTES_S * 1e3
+        times = {}
+        time_pairs(torch, pairs, err, times, f"phase 33 time at {label} f32",
+                   {}, library, {"coarse_band_solve": (bound_ms, "bytes")})
+        rec = times["coarse_band_solve"]
+        rec["steps"] = 4 * band.nb - 2
+        out[label] = {"n": band.n, "w": band.w, "nb": band.nb, "bs": band.bs,
+                      "band_mb": (band.d.numel() + band.c.numel()) * 8 / 1e6,
+                      **{k: rec[k] for k in ("ms", "plain_ms", "library_ms",
+                                             "bound_ms", "steps")}}
+        records["coarse_band_solve"] = rec
+        del solver, band, host, dense, pairs, library
+        torch.cuda.empty_cache()
+    expected = 1 + cyc.mu0 * (len(var["levels"]) - 2) + var["cycles"]
+    launched = var["launches"].get("coarse_band_solve", 0)
+    print(f"phase 33 phase 16's 384^3 f32 solve: {var['cycles']} cycles, K39 "
+          f"launched {launched} times ({expected} coarse solves), "
+          f"torch.cholesky_solve called {var['cholesky_solve_calls']} times, "
+          f"peak {var['peak_gb']:.2f} GB")
+    if (var["cycles"] != 2 or launched != expected
+            or var["cholesky_solve_calls"] != 0):
+        raise AssertionError("384^3 var solve: not 2 cycles, one K39 launch a "
+                             "coarse solve and no library solve")
+    out["var_384"] = {"cycles": var["cycles"], "launches": launched,
+                      "peak_gb": var["peak_gb"]}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=ROOT / "build" / "chip_smoke",
@@ -3896,6 +4024,8 @@ def main() -> int:
         phase = enter("32 uncertified mass at 512^3")
         counts_mq, mass_quad_path = phase_mass_quad_path(torch, np, mg, card,
                                                          main)
+        phase = enter("33 kernel K39")
+        coarse_band = phase_coarse_band(torch, np, mg, records, var)
     except Exception:
         print(f"FAILED in phase {phase}:")
         traceback.print_exc(file=sys.stdout)
@@ -3906,6 +4036,7 @@ def main() -> int:
     # launches: each kernel's count in the main path that runs it
     for k, rec in records.items():
         rec["launches"] = (counts[k] if k in KERNELS_3D + KERNELS_TAIL else
+                           counts_var[k] if k == "coarse_band_solve" else
                            counts_ref[k] if k == "jacobi_sweep_2d" else
                            counts_s3[k] if k in KERNELS_SLICE3 else
                            counts_var[k] if k in KERNELS_PLANES else
@@ -3926,7 +4057,8 @@ def main() -> int:
          "dist_kernels_1025": dist_kernels, "dist3d": dist3d,
          "dist2d": dist2d, "cycle_kernels": cycle_kernels,
          "fusion": fusion, "mass_quad": mass_quad,
-         "mass_quad_path": mass_quad_path, "phase_s": phase_s, "kernels": list(records.values())}, indent=1))
+         "mass_quad_path": mass_quad_path, "coarse_band": coarse_band,
+         "phase_s": phase_s, "kernels": list(records.values())}, indent=1))
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

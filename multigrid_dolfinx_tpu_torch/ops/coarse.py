@@ -1,13 +1,12 @@
-"""Coarsest-grid direct solve: factorised once on the host with scipy,
-solved on the device with torch.linalg (a library solve, as the JAX
-package left it to XLA).  Mirrors `multigrid_dolfinx_tpu.ops.coarse`,
-with one difference: the factor is kept in f64 whatever the hierarchy's
-dtype, and the right-hand side is solved in f64 and rounded back.  The
-coarsest grid has (n0+1)^3 = 729 unknowns, so this costs nothing, and the
-rounded f32 solution is then the same on the CPU and on the card; two f32
-triangular solves in different library orders differ by a few ulps, which
-the FMG start carries to the finest residual (about 3e-4 relative at
-64^3).
+"""Coarsest-grid direct solve: factorised once on the host with scipy.
+Mirrors `multigrid_dolfinx_tpu.ops.coarse`, with two differences.  The
+factor is kept in f64 whatever the hierarchy's dtype, and the right-hand
+side is solved in f64 and rounded back.  And kind 'cholesky' solves over
+the factor's band in block form (ops/cuda/coarse_band.py): one launch of
+kernel K39 on the card, its plain version on the CPU, which agree
+bitwise, so the rounded solution is the same on the CPU and on the card.
+The dense factor stays on the host.  Kinds 'lu' and 'inverse' are
+library solves on the device, as the JAX package left them to XLA.
 """
 from __future__ import annotations
 
@@ -17,25 +16,31 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from . import dispatch
+from .cuda.coarse_band import BandFactor, band_factor
+
 
 @dataclasses.dataclass(frozen=True)
 class CoarseSolver:
     """Factorised dense solver for the coarsest level.
 
     kind='cholesky': factor = lower Cholesky factor of A0 (SPD after the
-    symmetric Dirichlet elimination).  kind='lu': factor/piv from LAPACK
+    symmetric Dirichlet elimination), on the host; band = its band in
+    block form on the solve's device.  kind='lu': factor/piv from LAPACK
     getrf, with scipy's 0-based pivots.  kind='inverse': factor = A0^-1."""
 
     factor: torch.Tensor          # f64
     piv: Optional[torch.Tensor]
     kind: str
     grid_shape: Tuple[int, ...]
+    band: Optional[BandFactor] = None
 
     def solve(self, f_grid: torch.Tensor) -> torch.Tensor:
-        f = f_grid.reshape(-1, 1).to(torch.float64)
         if self.kind == "cholesky":
-            u = torch.cholesky_solve(f, self.factor, upper=False)
-        elif self.kind == "lu":
+            return dispatch.coarse_band_solve(
+                f_grid, self.band).reshape(self.grid_shape)
+        f = f_grid.reshape(-1, 1).to(torch.float64)
+        if self.kind == "lu":
             # torch takes LAPACK's 1-based pivots
             u = torch.linalg.lu_solve(self.factor, self.piv + 1, f)
         elif self.kind == "inverse":
@@ -54,6 +59,9 @@ def build_coarse_solver(offsets: Sequence[Tuple[int, ...]], planes: np.ndarray,
 
     A = stencil_to_csr(offsets, planes).toarray()
     piv = None
+    shape = planes.shape[1:]
+    strides = np.cumprod((1,) + shape[:0:-1])[::-1]     # C order
+    w = max(abs(int(np.dot(o, strides))) for o in offsets)
     if kind == "cholesky":
         factor = scipy.linalg.cholesky(A, lower=True)
     elif kind == "lu":
@@ -63,12 +71,23 @@ def build_coarse_solver(offsets: Sequence[Tuple[int, ...]], planes: np.ndarray,
     else:
         raise ValueError(f"unknown coarse solver kind {kind!r}")
     return coarse_solver_from_numpy(factor, piv, kind,
-                                    tuple(planes.shape[1:]), device)
+                                    tuple(planes.shape[1:]), device, w)
 
 
 def coarse_solver_from_numpy(factor: np.ndarray, piv: Optional[np.ndarray],
                              kind: str, grid_shape: Tuple[int, ...],
-                             device) -> CoarseSolver:
+                             device, w: Optional[int] = None
+                             ) -> CoarseSolver:
+    """A solver from a factor as `build_coarse_solver` makes it.  For
+    'cholesky' the band's half-width is the factor's own; an entry
+    beyond `w`, where given, raises."""
+    if kind == "cholesky":
+        factor = np.asarray(factor, dtype=np.float64)
+        if not factor.flags.writeable:
+            factor = factor.copy()
+        return CoarseSolver(factor=torch.from_numpy(factor), piv=None,
+                            kind=kind, grid_shape=tuple(grid_shape),
+                            band=band_factor(factor, device, w))
     return CoarseSolver(
         factor=torch.tensor(np.asarray(factor), dtype=torch.float64,
                             device=device),

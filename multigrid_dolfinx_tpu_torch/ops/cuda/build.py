@@ -24,7 +24,7 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
 SOURCES = ("stencil3d.cu", "stencil3d_cheby.cu", "stencil3d_tail.cu",
            "stencil3d_norm.cu", "stencil3d_planes.cu", "stencil3d_p2.cu",
            "stencil2d.cu", "stencil2d_planes.cu", "stencil3d_dist.cu",
-           "stencil2d_dist.cu", "stencil3d_cycle.cu")
+           "stencil2d_dist.cu", "stencil3d_cycle.cu", "coarse_band.cu")
 HEADERS = ("stencil3d.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -114,6 +114,8 @@ SIGNATURES = {
     "mg_restrict_pt_dist_2d_f64": "pppiiiip",
     "mg_prolong_add_dist_2d_f32": "ppppiiiip",
     "mg_prolong_add_dist_2d_f64": "ppppiiiip",
+    "mg_coarse_band_solve_f32": "pppppiiiip",
+    "mg_coarse_band_solve_f64": "pppppiiiip",
 }
 
 _LIB = None

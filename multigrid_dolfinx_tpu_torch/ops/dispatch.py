@@ -10,10 +10,10 @@ from __future__ import annotations
 
 import torch
 
-from .cuda import (stencil2d, stencil2d_dist, stencil2d_planes, stencil3d,
-                   stencil3d_cheby, stencil3d_cycle, stencil3d_dist,
-                   stencil3d_norm, stencil3d_p2, stencil3d_planes,
-                   stencil3d_tail)
+from .cuda import (coarse_band, stencil2d, stencil2d_dist, stencil2d_planes,
+                   stencil3d, stencil3d_cheby, stencil3d_cycle,
+                   stencil3d_dist, stencil3d_norm, stencil3d_p2,
+                   stencil3d_planes, stencil3d_tail)
 from .cuda.stencil3d_planes import planes3_colors  # noqa: F401  (re-export)
 from .operators import StencilOperator
 
@@ -333,3 +333,9 @@ def prolong_add_dist_2d(c, chi, lmf, row_base, v=None):
     if _on_cuda(c):
         return stencil2d_dist.prolong_add_dist_2d(c, chi, lmf, row_base, v)
     return stencil2d_dist.prolong_add_dist_2d_ref(c, chi, lmf, row_base, v)
+
+
+def coarse_band_solve(f, band):
+    if _on_cuda(f):
+        return coarse_band.coarse_band_solve(f, band)
+    return coarse_band.coarse_band_solve_ref(f, band)
